@@ -1,0 +1,192 @@
+"""Set-associative, ASID-tagged TLBs as tensor state (port of `repro.core.tlb`).
+
+One structure covers the per-core L1 TLB (a bank with a leading (n_cores,)
+axis), the shared L2 TLB, the bypass cache, the page-walk cache and the
+line-addressed L2 data cache. Fills are batched with one fill per set per
+call (first lane wins).
+
+The reference drops masked lanes by scattering them out of bounds
+(`mode="drop"`). Torch has no drop mode, so `_scatter_drop` appends one
+trash slot to the flattened plane, routes masked lanes there and slices
+it off.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.kernels.fused_tlb.ops import fused_tlb_access
+
+
+class TLBState(NamedTuple):
+    tags: torch.Tensor      # (sets, ways) int32 vpn  (-1 invalid)
+    asids: torch.Tensor     # (sets, ways) int32
+    lru: torch.Tensor       # (sets, ways) int32 last-use time
+    hits: torch.Tensor      # () int32 cumulative
+    misses: torch.Tensor    # () int32
+
+
+def _scatter_drop(plane: torch.Tensor, flat: torch.Tensor, values
+                  ) -> torch.Tensor:
+    """`plane.reshape(-1).at[flat].set(values, mode="drop")`: indices equal
+    to plane.numel() are dropped. Kept indices must be distinct, or carry
+    equal values (index_put_ gives duplicates no defined order)."""
+    ext = torch.cat([plane.reshape(-1), plane.new_empty(1)])
+    if torch.is_tensor(values):
+        ext.index_put_((flat,), values)
+    else:
+        ext.index_fill_(0, flat, values)
+    return ext[:-1].reshape(plane.shape)
+
+
+def _set_index(vpn: torch.Tensor, n_sets: int) -> torch.Tensor:
+    if n_sets > 1:
+        return (vpn % n_sets).long()
+    return torch.zeros_like(vpn, dtype=torch.long)
+
+
+def init(n_entries: int, n_ways: int, device) -> TLBState:
+    n_sets = max(n_entries // n_ways, 1)
+    shape = (n_sets, n_ways)
+    i32 = dict(dtype=torch.int32, device=device)
+    return TLBState(
+        tags=torch.full(shape, -1, **i32),
+        asids=torch.full(shape, -1, **i32),
+        lru=torch.zeros(shape, **i32),
+        hits=torch.zeros((), **i32),
+        misses=torch.zeros((), **i32),
+    )
+
+
+def probe(state: TLBState, vpn, asid, active, time: int
+          ) -> Tuple[TLBState, torch.Tensor]:
+    """Batched probe. vpn/asid/active: (N,). Returns (state', hit (N,) bool).
+
+    LRU is updated for hits; hit/miss counters accumulate only active lanes.
+    """
+    n_sets, n_ways = state.tags.shape
+    set_ix = _set_index(vpn, n_sets)
+    match = (state.tags[set_ix] == vpn[:, None]) \
+        & (state.asids[set_ix] == asid[:, None])
+    hit = match.any(1) & active
+    way = match.to(torch.int32).argmax(1)
+    # LRU touch for hits only; miss lanes go to the trash slot
+    flat = torch.where(hit, set_ix * n_ways + way, n_sets * n_ways)
+    lru = _scatter_drop(state.lru, flat, time)
+    hits = state.hits + hit.sum(dtype=torch.int32)
+    misses = state.misses + (active & ~hit).sum(dtype=torch.int32)
+    return state._replace(lru=lru, hits=hits, misses=misses), hit
+
+
+def fill(state: TLBState, vpn, asid, do_fill, time: int) -> TLBState:
+    """Batched fill with LRU victim selection. do_fill: (N,) bool.
+
+    One fill per set per call (first lane wins): fill-port limits."""
+    n_sets, n_ways = state.tags.shape
+    set_ix = _set_index(vpn, n_sets)
+    order = torch.arange(vpn.shape[0], device=vpn.device)
+    same_earlier = (set_ix[None, :] == set_ix[:, None]) \
+        & (order[None, :] < order[:, None]) & do_fill[None, :]
+    do_fill = do_fill & ~same_earlier.any(1)
+
+    victim = state.lru[set_ix].argmin(1)
+    # after the port model every set has at most one filling lane, so the
+    # kept indices are distinct
+    flat = torch.where(do_fill, set_ix * n_ways + victim, n_sets * n_ways)
+    return state._replace(tags=_scatter_drop(state.tags, flat, vpn),
+                          asids=_scatter_drop(state.asids, flat, asid),
+                          lru=_scatter_drop(state.lru, flat, time))
+
+
+def init_bank(n_banks: int, n_entries: int, n_ways: int, device) -> TLBState:
+    """A bank of identical TLBs: one TLBState with leading axis (n_banks,)."""
+    single = init(n_entries, n_ways, device)
+    return TLBState(*(x.expand((n_banks,) + x.shape).clone()
+                      for x in single))
+
+
+def probe_bank(state: TLBState, vpn, asid, active, time: int
+               ) -> Tuple[TLBState, torch.Tensor]:
+    """Probe a bank of TLBs, one request per bank. vpn/asid/active: (B,)."""
+    B, n_sets, n_ways = state.tags.shape
+    set_ix = _set_index(vpn, n_sets)
+    b = torch.arange(B, device=vpn.device)
+    match = (state.tags[b, set_ix] == vpn[:, None]) \
+        & (state.asids[b, set_ix] == asid[:, None])
+    hit = match.any(1) & active
+    way = match.to(torch.int32).argmax(1)
+    flat = torch.where(hit, (b * n_sets + set_ix) * n_ways + way,
+                       B * n_sets * n_ways)
+    lru = _scatter_drop(state.lru, flat, time)
+    hits = state.hits + hit.to(torch.int32)
+    misses = state.misses + (active & ~hit).to(torch.int32)
+    return state._replace(lru=lru, hits=hits, misses=misses), hit
+
+
+def fill_bank(state: TLBState, vpn, asid, do_fill, time: int) -> TLBState:
+    """Fill a bank of TLBs, one request per bank. vpn/asid/do_fill: (B,)."""
+    B, n_sets, n_ways = state.tags.shape
+    set_ix = _set_index(vpn, n_sets)
+    b = torch.arange(B, device=vpn.device)
+    victim = state.lru[b, set_ix].argmin(1)
+    flat = torch.where(do_fill, (b * n_sets + set_ix) * n_ways + victim,
+                       B * n_sets * n_ways)
+    return state._replace(tags=_scatter_drop(state.tags, flat, vpn),
+                          asids=_scatter_drop(state.asids, flat, asid),
+                          lru=_scatter_drop(state.lru, flat, time))
+
+
+def access_fused(state: TLBState, vpn, asid, active, may_fill, time: int,
+                 n_waves: int = 1, track_asids: bool = True,
+                 backend: str | None = None,
+                 ) -> Tuple[TLBState, torch.Tensor, torch.Tensor]:
+    """One-call probe+fill for a whole cycle's sub-accesses ("waves").
+
+    Same contract as the reference (`repro.core.tlb.access_fused`): the
+    lanes are `n_waves` contiguous equal groups; one fill per set per wave
+    (first candidate wins), per-position duplicate suppression across
+    waves, k-th-LRU victim chains, forwarding from the post-fill table,
+    and at most n_ways fills per set per cycle. Where a pre-hit lane and a
+    same-cycle winner write one slot, the higher lane index wins, as the
+    reference's serial scatter gives.
+
+    The round runs in `kernels/fused_tlb`: the CUDA kernel on a CUDA
+    tensor, the plain PyTorch round on a CPU tensor. `backend` ("cuda" or
+    "torch", from `SimConfig.tlb_backend`) states which one the caller
+    expects; a mismatch raises. The tags/asids/lru planes are updated in
+    place and returned, as the hardware structure is; the hit/miss
+    counters are computed here for both backends.
+    Returns (state', hit (N,) bool, filled (N,) bool).
+    """
+    if backend is not None and backend != ("cuda" if vpn.is_cuda
+                                           else "torch"):
+        raise ValueError(f"tlb backend {backend!r} does not run on device "
+                         f"{vpn.device}")
+    tags, asids, lru, hit_i, filled_i = fused_tlb_access(
+        state.tags, state.asids, state.lru, vpn, asid, active, may_fill,
+        time, n_waves=n_waves, track_asids=track_asids)
+    hit = hit_i != 0
+    filled = filled_i != 0
+    hits = state.hits + hit.sum(dtype=torch.int32)
+    misses = state.misses + (active & ~hit).sum(dtype=torch.int32)
+    return (state._replace(tags=tags, asids=asids, lru=lru, hits=hits,
+                           misses=misses), hit, filled)
+
+
+def flush_asid(state: TLBState, asid: int) -> TLBState:
+    """TLB shootdown for one address space (paper §5.1)."""
+    kill = state.asids == asid
+    return state._replace(tags=state.tags.masked_fill(kill, -1),
+                          asids=state.asids.masked_fill(kill, -1))
+
+
+def occupancy_by_asid(state: TLBState, n_asids: int) -> torch.Tensor:
+    """(n_asids,) live-entry counts; works on banked states too.
+
+    An ASID outside 0..n_asids-1 (such as -1) counts nowhere, as the
+    reference's one-hot does."""
+    valid = state.tags >= 0
+    ids = torch.arange(n_asids, device=state.asids.device)
+    oh = (state.asids[..., None] == ids) & valid[..., None]
+    return oh.reshape(-1, n_asids).sum(0, dtype=torch.int32)

@@ -1,0 +1,98 @@
+"""Simulator configuration (paper Table 1, Maxwell-class); port of
+`repro.sim.config`.
+
+Besides the reference's fields, a config names the device it runs on and
+the implementation of the fused shared-cache round:
+
+  * `device`: None means "cuda" and raises where no card is visible
+    (`repro_torch.device.resolve_device`);
+  * `tlb_backend`: "cuda" is the hand-written kernel, "torch" the plain
+    PyTorch round. None resolves from the device. "cuda" on a CPU device
+    raises, and so does "torch" on a CUDA device: the plain round never
+    runs on the card's main path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from repro_torch.core.design import Design, as_design, get_design
+from repro_torch.device import resolve_device
+
+TLB_BACKENDS = ("torch", "cuda")
+
+
+def resolve_tlb_backend(value: Optional[str], device: str) -> str:
+    """The fused-round backend for `device`; raises on a mismatch."""
+    want = "cuda" if device.startswith("cuda") else "torch"
+    if value is None:
+        return want
+    if value not in TLB_BACKENDS:
+        raise ValueError(
+            f"tlb_backend must be one of {TLB_BACKENDS}, got {value!r}")
+    if value != want:
+        raise ValueError(
+            f"tlb_backend={value!r} cannot run on device {device!r}: "
+            "'cuda' is the kernel and needs a CUDA device, 'torch' is the "
+            "plain round and runs only on the CPU")
+    return value
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    n_cores: int = 30
+    warps_per_core: int = 32
+    n_apps: int = 2
+    # L2 data cache: 2MB, 16-way, 128B lines -> 1024 sets
+    l2_sets: int = 1024
+    l2_ways: int = 16
+    # page-walk cache (Fig. 2a design): 16-way, 1024 entries (§3 fn. 2)
+    pwc_entries: int = 1024
+    pwc_ways: int = 16
+    # DRAM: 8 channels x 8 banks
+    n_channels: int = 8
+    n_banks: int = 8
+    # latencies (cycles)
+    lat_l1_tlb: int = 1
+    lat_l2_tlb: int = 10
+    lat_l2_cache: int = 10
+    lat_l1_data: int = 1
+    sim_cycles: int = 60_000
+    # a repro_torch.core.design.Design; a registered name is coerced
+    design: Design = dataclasses.field(
+        default_factory=lambda: get_design("gpu-mmu"))
+    tlb_backend: Optional[str] = None
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        if not 1 <= self.n_apps <= self.n_cores:
+            raise ValueError(
+                f"n_apps must be in [1, n_cores={self.n_cores}], "
+                f"got {self.n_apps}")
+        if not isinstance(self.design, Design):
+            object.__setattr__(self, "design", as_design(self.design))
+        dev = str(resolve_device(self.device))
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "tlb_backend",
+                           resolve_tlb_backend(self.tlb_backend, dev))
+
+    @property
+    def total_warps(self) -> int:
+        return self.n_cores * self.warps_per_core
+
+    @property
+    def app_of_core(self) -> Tuple[int, ...]:
+        """(n_cores,) oracle core split (§6): contiguous, near-equal ranges."""
+        return tuple((c * self.n_apps) // self.n_cores
+                     for c in range(self.n_cores))
+
+    @property
+    def cores_per_app(self) -> Tuple[int, ...]:
+        counts = [0] * self.n_apps
+        for a in self.app_of_core:
+            counts[a] += 1
+        return tuple(counts)
+
+    @property
+    def warps_per_app(self) -> Tuple[int, ...]:
+        return tuple(c * self.warps_per_core for c in self.cores_per_app)

@@ -1,0 +1,300 @@
+"""Parity of the port's TLB machinery and plain fused round (CPU).
+
+`probe`/`fill`/`probe_bank`/`fill_bank` are stepped in lockstep with the
+reference over seeded request streams. The plain fused round
+(`access_fused` on CPU tensors) is held against the reference's XLA path
+and its Pallas kernel in interpret mode, at the kernel-test shapes, at
+both main-path shapes with negative (int32-wrapped) tags, and on the
+write-collision case. Everything is exact.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import tlb as ref_tlb  # noqa: E402
+from repro.kernels.fused_tlb.ops import fused_tlb_access  # noqa: E402
+from repro_torch.core import tlb as pt_tlb  # noqa: E402
+from repro_torch.kernels.fused_tlb import ops as pt_ops  # noqa: E402
+from repro_torch.kernels.fused_tlb.kernel import fused_tlb_round  # noqa: E402
+from repro_torch.sim.convert import tlb_from_numpy, tlb_to_numpy  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _ref_np(state):
+    return ref_tlb.TLBState(*(np.asarray(x) for x in state))
+
+
+def _assert_state(got, want, msg=""):
+    got = tlb_to_numpy(got)
+    for f in ref_tlb.TLBState._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f"{msg} {f}")
+
+
+def _to_jax(state_np):
+    return ref_tlb.TLBState(*(jnp.asarray(x) for x in state_np))
+
+
+def _random_state(rng, shape, tag_hi=40, asid_hi=3, lru_hi=50):
+    return ref_tlb.TLBState(
+        tags=rng.randint(-1, tag_hi, shape).astype(np.int32),
+        asids=rng.randint(-1, asid_hi, shape).astype(np.int32),
+        lru=rng.randint(0, lru_hi, shape).astype(np.int32),
+        hits=np.asarray(rng.randint(0, 9, shape[:-2]), np.int32),
+        misses=np.asarray(rng.randint(0, 9, shape[:-2]), np.int32))
+
+
+@pytest.mark.parametrize("entries,ways,N", [(512, 16, 30), (32, 32, 30),
+                                            (64, 4, 12), (8, 8, 3)])
+def test_probe_fill_lockstep(entries, ways, N):
+    rng = np.random.RandomState(entries + ways + N)
+    ref = _ref_np(ref_tlb.init(entries, ways))
+    got = pt_tlb.init(entries, ways, "cpu")
+    for t in range(1, 40):
+        vpn = rng.randint(0, 3 * entries, N).astype(np.int32)
+        asid = rng.randint(0, 3, N).astype(np.int32)
+        act = rng.rand(N) > 0.2
+        fil = rng.rand(N) > 0.3
+        r_state, r_hit = ref_tlb.probe(_to_jax(ref), jnp.asarray(vpn),
+                                       jnp.asarray(asid), jnp.asarray(act), t)
+        got, hit = pt_tlb.probe(got, torch.tensor(vpn), torch.tensor(asid),
+                                torch.tensor(act), t)
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(r_hit))
+        ref = _ref_np(ref_tlb.fill(r_state, jnp.asarray(vpn),
+                                   jnp.asarray(asid),
+                                   jnp.asarray(fil & ~np.asarray(r_hit)), t))
+        got = pt_tlb.fill(got, torch.tensor(vpn), torch.tensor(asid),
+                          torch.tensor(fil) & ~hit, t)
+        _assert_state(got, ref, f"t={t}")
+
+
+@pytest.mark.parametrize("B,entries,ways", [(30, 64, 64), (5, 16, 4),
+                                            (3, 8, 8)])
+def test_bank_lockstep(B, entries, ways):
+    rng = np.random.RandomState(B * entries)
+    ref = _ref_np(ref_tlb.init_bank(B, entries, ways))
+    got = pt_tlb.init_bank(B, entries, ways, "cpu")
+    _assert_state(got, ref, "init")
+    for t in range(1, 50):
+        vpn = rng.randint(0, 2 * entries, B).astype(np.int32)
+        asid = rng.randint(0, 2, B).astype(np.int32)
+        act = rng.rand(B) > 0.2
+        r_state, r_hit = ref_tlb.probe_bank(
+            _to_jax(ref), jnp.asarray(vpn), jnp.asarray(asid),
+            jnp.asarray(act), t)
+        got, hit = pt_tlb.probe_bank(got, torch.tensor(vpn),
+                                     torch.tensor(asid), torch.tensor(act), t)
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(r_hit))
+        miss = act & ~np.asarray(r_hit)
+        ref = _ref_np(ref_tlb.fill_bank(r_state, jnp.asarray(vpn),
+                                        jnp.asarray(asid), jnp.asarray(miss),
+                                        t))
+        got = pt_tlb.fill_bank(got, torch.tensor(vpn), torch.tensor(asid),
+                               torch.tensor(miss), t)
+        _assert_state(got, ref, f"t={t}")
+
+
+def test_flush_and_occupancy():
+    rng = np.random.RandomState(3)
+    for shape in ((4, 8), (3, 1, 16)):
+        st = _random_state(rng, shape, asid_hi=5)
+        got = tlb_from_numpy(st, "cpu")
+        for a in (0, 2, -1):
+            _assert_state(pt_tlb.flush_asid(got, a),
+                          _ref_np(ref_tlb.flush_asid(_to_jax(st), a)))
+        for n in (2, 5):
+            np.testing.assert_array_equal(
+                pt_tlb.occupancy_by_asid(got, n).numpy(),
+                np.asarray(ref_tlb.occupancy_by_asid(_to_jax(st), n)))
+
+
+# ------------------------------------------------------------ fused round
+
+def _kernel_test_case(sets, ways, N, W):
+    """The inputs of the reference's kernel test (`test_kernels.py`)."""
+    rng = np.random.RandomState(sets * ways + W)
+    return dict(
+        tags=rng.randint(-1, 500, (sets, ways)).astype(np.int32),
+        asids=rng.randint(0, 3, (sets, ways)).astype(np.int32),
+        lru=rng.randint(0, 100, (sets, ways)).astype(np.int32),
+        vpn=rng.randint(0, 600, (N,)).astype(np.int32),
+        asid=rng.randint(0, 3, (N,)).astype(np.int32),
+        active=rng.rand(N) > 0.25, may_fill=rng.rand(N) > 0.2, time=77)
+
+
+def _path_case(sets, ways, N, W, masks, seed):
+    """A main-path-like tag-only round: tags are line ids wrapped to int32
+    (mostly negative), each in the set it maps to; about half the lanes
+    re-touch resident lines, some repeat their own earlier-wave line."""
+    rng = np.random.RandomState(seed)
+    hi = rng.randint(-2**21, 2**21, (sets, ways)).astype(np.int64)
+    tags = (hi * sets + np.arange(sets)[:, None]).astype(np.int32)
+    tags[rng.rand(sets, ways) < 0.1] = -1
+    lru = rng.randint(0, 3000, (sets, ways)).astype(np.int32)
+    vpn = (rng.randint(-2**21, 2**21, N) * sets
+           + rng.randint(0, sets, N)).astype(np.int32)
+    resident = rng.rand(N) < 0.5
+    pick = tags.reshape(-1)[rng.randint(0, sets * ways, N)]
+    vpn = np.where(resident & (pick != -1), pick, vpn).astype(np.int32)
+    C = N // W
+    rep = rng.rand(N) < 0.15
+    rep[:C] = False
+    vpn[rep] = vpn[np.flatnonzero(rep) - C]
+    active = {"all": np.ones(N, bool), "half": rng.rand(N) < 0.5,
+              "nofill": np.ones(N, bool)}[masks]
+    may_fill = np.zeros(N, bool) if masks == "nofill" else rng.rand(N) < 0.8
+    return dict(tags=tags, asids=np.zeros((sets, ways), np.int32), lru=lru,
+                vpn=vpn, asid=np.zeros(N, np.int32), active=active,
+                may_fill=may_fill, time=3001)
+
+
+def _collision_case(order):
+    """One set: way 0 holds line 8 with the oldest LRU, so a same-cycle
+    fill of the set takes way 0 while another lane pre-hits it."""
+    return dict(tags=np.asarray([[8, 12, 16, 20]], np.int32),
+                asids=np.zeros((1, 4), np.int32),
+                lru=np.asarray([[1, 5, 6, 7]], np.int32),
+                vpn=np.asarray(order, np.int32), asid=np.zeros(2, np.int32),
+                active=np.ones(2, bool), may_fill=np.ones(2, bool), time=50)
+
+
+def _run_ref(case, W, track, interpret):
+    args = [jnp.asarray(case[k]) for k in ("tags", "asids", "lru", "vpn",
+                                           "asid", "active", "may_fill")]
+    if interpret:
+        out = fused_tlb_access(*args, case["time"], n_waves=W,
+                               track_asids=track, interpret=True)
+    else:
+        st = ref_tlb.TLBState(args[0], args[1], args[2], jnp.int32(0),
+                              jnp.int32(0))
+        st, hit, filled = ref_tlb.access_fused(
+            st, *args[3:], case["time"], n_waves=W, track_asids=track)
+        out = (st.tags, st.asids, st.lru, hit, filled)
+    return [np.asarray(x).astype(np.int32) for x in out]
+
+
+def _run_port(case, W, track):
+    t = {k: torch.tensor(case[k]) for k in ("tags", "asids", "lru", "vpn",
+                                            "asid", "active", "may_fill")}
+    before = fused_tlb_round.launches
+    out = pt_ops.fused_tlb_access(
+        t["tags"], t["asids"], t["lru"], t["vpn"], t["asid"], t["active"],
+        t["may_fill"], case["time"], n_waves=W, track_asids=track)
+    assert fused_tlb_round.launches == before       # CPU: the plain round
+    assert out[0] is t["tags"] and out[2] is t["lru"]   # updated in place
+    return [x.numpy() for x in out]
+
+
+def _check(case, W, track, interpret):
+    want = _run_ref(case, W, track, interpret)
+    got = _run_port(case, W, track)
+    for a, b, name in zip(got, want, ("tags", "asids", "lru", "hit",
+                                      "filled")):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("sets,ways,N,W", [(1, 64, 30, 1), (32, 16, 30, 3),
+                                           (64, 8, 64, 4), (4, 2, 24, 6)])
+@pytest.mark.parametrize("track_asids", [True, False])
+@pytest.mark.parametrize("interpret", [False, True])
+def test_fused_round_kernel_test_shapes(sets, ways, N, W, track_asids,
+                                        interpret):
+    _check(_kernel_test_case(sets, ways, N, W), W, track_asids, interpret)
+
+
+PATH_SHAPES = [(1024, 16, 240, 8), (1024, 16, 120, 4), (64, 16, 120, 4)]
+
+
+@pytest.mark.parametrize("sets,ways,N,W", PATH_SHAPES)
+@pytest.mark.parametrize("masks", ["all", "half", "nofill"])
+def test_fused_round_path_shapes(sets, ways, N, W, masks):
+    case = _path_case(sets, ways, N, W, masks, seed=sets + N)
+    assert (case["vpn"] < 0).mean() > 0.3          # negative tags occur
+    _check(case, W, False, interpret=False)
+
+
+@pytest.mark.parametrize("sets,ways,N,W", PATH_SHAPES[::2])
+def test_fused_round_path_shapes_interpret(sets, ways, N, W):
+    _check(_path_case(sets, ways, N, W, "half", seed=7), W, False,
+           interpret=True)
+
+
+@pytest.mark.parametrize("sets,ways,N,W", PATH_SHAPES)
+def test_fused_round_chained_rounds(sets, ways, N, W):
+    """Twenty rounds in a row on one evolving table, port vs reference."""
+    case = _path_case(sets, ways, N, W, "half", seed=11)
+    planes = {k: case[k] for k in ("tags", "asids", "lru")}
+    rng = np.random.RandomState(5)
+    for r in range(20):
+        nxt = _path_case(sets, ways, N, W, "half", seed=100 + r)
+        pick = planes["tags"].reshape(-1)[rng.randint(0, sets * ways, N)]
+        nxt["vpn"] = np.where(rng.rand(N) < 0.4, pick, nxt["vpn"]) \
+            .astype(np.int32)
+        nxt.update(planes, time=4000 + r)
+        want = _run_ref(nxt, W, False, interpret=False)
+        got = _run_port(nxt, W, False)
+        for a, b, name in zip(got, want, ("tags", "asids", "lru", "hit",
+                                          "filled")):
+            np.testing.assert_array_equal(a, b, err_msg=f"round {r} {name}")
+        planes = dict(zip(("tags", "asids", "lru"), got[:3]))
+
+
+@pytest.mark.parametrize("order,tag0,hit,filled", [
+    ([8, 100], 100, [1, 0], [0, 1]),    # the winner (lane 1) owns way 0
+    ([100, 8], 8, [0, 1], [1, 0]),      # the pre-hit (lane 1) owns way 0
+])
+@pytest.mark.parametrize("interpret", [False, True])
+def test_fused_round_write_collision(order, tag0, hit, filled, interpret):
+    """A pre-hit lane and a same-cycle winner name one slot: the higher
+    lane index wins it, as the reference's serial scatter gives."""
+    case = _collision_case(order)
+    want = _run_ref(case, 1, False, interpret)
+    got = _run_port(case, 1, False)
+    assert want[0][0, 0] == tag0 and got[0][0, 0] == tag0
+    assert want[3].tolist() == hit and want[4].tolist() == filled
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_access_fused_counters_and_backend_check():
+    case = _kernel_test_case(32, 16, 30, 3)
+    st = pt_tlb.TLBState(*(torch.tensor(case[k]) for k in
+                           ("tags", "asids", "lru")),
+                         torch.tensor(5, dtype=torch.int32),
+                         torch.tensor(7, dtype=torch.int32))
+    args = [torch.tensor(case[k]) for k in ("vpn", "asid", "active",
+                                            "may_fill")]
+    rst = ref_tlb.TLBState(*(jnp.asarray(case[k]) for k in
+                             ("tags", "asids", "lru")), jnp.int32(5),
+                           jnp.int32(7))
+    rst, rhit, rfilled = ref_tlb.access_fused(
+        rst, *(jnp.asarray(case[k]) for k in ("vpn", "asid", "active",
+                                              "may_fill")), 77, n_waves=3)
+    got, hit, filled = pt_tlb.access_fused(st, *args, 77, n_waves=3,
+                                           backend="torch")
+    _assert_state(got, _ref_np(rst))
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(rhit))
+    np.testing.assert_array_equal(filled.numpy(), np.asarray(rfilled))
+    with pytest.raises(ValueError, match="backend"):
+        pt_tlb.access_fused(st, *args, 78, n_waves=3, backend="cuda")
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA wrapper launches or raises; it never runs the plain round."""
+    z = torch.zeros((4, 2), dtype=torch.int32)
+    v = torch.zeros(8, dtype=torch.int32)
+    b = torch.zeros(8, dtype=torch.bool)
+    before = fused_tlb_round.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_tlb_round(z, z, z, v, v, b, b, 0)
+    assert fused_tlb_round.launches == before
