@@ -49,12 +49,6 @@ def record(state: TokenState, app, hit, active) -> TokenState:
                           epoch_misses=state.epoch_misses + m)
 
 
-def has_token(state: TokenState, app, warp_slot) -> torch.Tensor:
-    """Round-robin in warpID order: warp w of app a holds a token iff
-    w < tokens[a]."""
-    return warp_slot < state.tokens[app]
-
-
 def epoch_update(state: TokenState, warps_per_app: torch.Tensor,
                  step_frac=np.float32(0.5), min_tokens: int = 1
                  ) -> TokenState:

@@ -80,6 +80,7 @@ def test_step_matches_reference_from_carried_state(name, epoch):
     ref_cfg, ref_dp, cfg, dp = _configs(name, epoch)
     pm = app_matrix(["3DS", "BLK"])
     pm_t = convert.params_mat_from_numpy(pm, "cpu")
+    np.testing.assert_array_equal(convert.params_mat_to_numpy(pm_t), pm)
     state = simulate(dataclasses.replace(cfg, sim_cycles=WARM), dp, pm_t)
     # carry the mid-run state across: port -> numpy -> reference
     treedef = jax.tree_util.tree_structure(ref_ms.init_state(ref_cfg,
