@@ -250,14 +250,17 @@ def time_round_graph(torch, fn, case, reps):
     return start.elapsed_time(end) / (5 * reps)
 
 
-def bound(np, case, filled):
+def bound(np, case, out):
     """Least time in ms for one round on these inputs, and what bounds it:
     the larger of its bytes over the HBM rate and its operations over the
-    CUDA cores' rate.
+    CUDA cores' rate. `out` is the round's result on this case (tags,
+    asids, lru, hit, filled), as numpy arrays.
 
-    Bytes: the tags and LRU planes (and the asid plane when tracked) read
-    once and written once; the lane inputs read once (vpn, and asid when
-    tracked, int32; active, may_fill bool); hit/filled written (int32).
+    Bytes, counted from this case's data: the tag row (and the asid row
+    when tracked) of each set an active lane maps to, and the LRU row of
+    each set with a winner, read once; each plane word the round changes,
+    written once; the lane inputs read once (vpn, and asid when tracked,
+    int32; active, may_fill bool); hit/filled written (int32).
     Operations, counted from this case's data: each active lane compares
     its line with its set's ways twice (probe and post-fill probe; twice
     as many compares with asids), with its own lines of every earlier
@@ -265,13 +268,18 @@ def bound(np, case, filled):
     sets, ways = case["tags"].shape
     N, W = len(case["vpn"]), case["n_waves"]
     track = case["track_asids"]
-    planes = 3 if track else 2
-    nbytes = (planes * 2 * sets * ways * 4
-              + N * (4 * (2 if track else 1) + 2) + N * 8)
     act = np.asarray(case["active"], bool)
+    filled = np.asarray(out[4]).astype(bool)
+    set_of = np.asarray(case["vpn"], np.int64) % sets    # floor mod
+    probed = len(np.unique(set_of[act])) * (2 if track else 1)
+    ranked = len(np.unique(set_of[filled]))
+    changed = sum(int((np.asarray(new) != case[k]).sum())
+                  for k, new in zip(("tags", "asids", "lru"), out[:3]))
+    nbytes = ((probed + ranked) * ways * 4 + changed * 4
+              + N * (4 * (2 if track else 1) + 2) + N * 8)
     wave = np.arange(N) // (N // W)
     ops = (2 * int(act.sum()) * ways * (2 if track else 1)
-           + int(wave[act].sum()) + int(np.asarray(filled).sum()) * ways)
+           + int(wave[act].sum()) + int(filled.sum()) * ways)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -324,8 +332,8 @@ def main():
         launch = time_round(torch, fused_tlb_round, case, 500)
         plain = time_round(torch, fused_tlb_access_ref, case, 50)
         args, kw = on_card(torch, case)
-        filled = fused_tlb_access_ref(*args, case["time"], **kw)[4]
-        least, bound_by = bound(np, case, filled.cpu().numpy())
+        out = fused_tlb_access_ref(*args, case["time"], **kw)
+        least, bound_by = bound(np, case, [t.cpu().numpy() for t in out])
         timings.append(dict(round=label, sets=shape[0], ways=shape[1],
                             lanes=shape[2], waves=shape[3], ms=ms,
                             launch_ms=launch, plain_ms=plain,
