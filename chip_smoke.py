@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-  1. build  -- compile `src/repro_torch/csrc/fused_tlb.cu` for sm_90a;
+  1. build  -- compile `src/repro_torch/csrc/fused_tlb.cu` and
+               `flash_attention.cu` for sm_90a, one nvcc each, in parallel;
   2. kernel -- the `fused_tlb` kernel against its plain PyTorch version on
                the card, element for element (exact: integer outputs), at
                both main-path shapes, the reference kernel test's shapes
@@ -17,7 +18,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                launch count must equal the fused rounds the runs made;
                run_mix == run_pair and idle partner == run_solo;
   4. timed  -- simulated cycles per second of the 9000-cycle mask run
-               (the `mask@9000` golden of phase 3).
+               (the `mask@9000` golden of phase 3);
+  5. flash  -- the `flash_attention` kernel against its plain PyTorch
+               version on the card: the reference kernel test's 18 cases
+               (atol = rtol = 2e-2 in bf16, 2e-5 in fp32), phase 7's
+               ragged 496-token prefill shape, and the serving
+               shape, qwen3-4b prefill (B=4, S=2048, 32 heads, 8 KV heads,
+               dh 128, causal, bf16, in the model's strided layout), the
+               last two in bf16 held to the rounding bound of
+               `flash_compare`; at the serving
+               shape the kernel's device time (CUDA events), its time per
+               launch from Python, the plain version's time, and
+               `scaled_dot_product_attention`'s time as a yardstick;
+  6. serve  -- the model's serving path at full width: qwen3-4b (36
+               layers) in bf16 with random weights from a seeded generator
+               on the card, `attention_impl="pallas_flash"`; 4 prompts of
+               2048 tokens through `forward_prefill` (max_len 2112), twice
+               (cold, then timed), then 64 greedy `forward_decode` steps;
+               flash launches == 36 per prefill, finite logits, cache_len
+               2112 at the end;
+  7. match  -- the same model in fp32 (TF32 off for matmul and cuDNN):
+               `forward_prefill` of 2 x 496 tokens plus 16 `forward_decode`
+               steps against `forward_train` over the same 512 tokens
+               (logits within 2e-3 after prefill, 5e-3 in decode).
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -27,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -119,6 +143,19 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 # float32 rate outside the tensor cores (data sheet): the round's integer
 # compares run on the same CUDA cores, at no higher a rate
 CUDA_CORE_OPS_PER_S = 67e12
+BF16_TENSOR_FLOPS = 989e12           # dense bf16 tensor-core rate
+
+# the reference's flash attention test sweep (tests/test_kernels.py):
+# (S, H, KV, dh, block_q, block_k) x (causal, window) x dtype
+FLASH_SHAPES = [(128, 4, 4, 64, 64, 64), (256, 8, 2, 64, 64, 128),
+                (128, 4, 1, 128, 32, 64)]
+FLASH_MASKS = [(True, None), (False, None), (True, 96)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol = rtol
+# the serving path's flash call: qwen3-4b prefill of 4 x 2048 tokens
+SERVE_ARCH = "qwen3-4b"
+SERVE_B, SERVE_S, SERVE_NEW = 4, 2048, 64
+MATCH_B, MATCH_PROMPT, MATCH_S = 2, 496, 512
+MATCH_TOL_PREFILL, MATCH_TOL_DECODE = 2e-3, 5e-3
 
 
 def log(msg):
@@ -286,6 +323,288 @@ def bound(np, case, out):
                                                            "operations")
 
 
+def flash_inputs(torch, np, S, H, KV, dh, dtype, seed, B=2):
+    """The reference test's inputs: numpy normals in (B, S, heads, dh), on
+    the card in `dtype`, passed as (B, heads, S, dh) views as the model's
+    `ops.flash_attention` passes them."""
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    return [torch.tensor(rng.randn(B, S, n, dh), dtype=torch.float32,
+                         device="cuda").to(dt).transpose(1, 2)
+            for n in (H, KV, KV)]
+
+
+def rounding_spread(torch, q, k, v, causal, window):
+    """sqrt(sum_j p_j^2 v_j^2) for each output element, p the fp32 softmax
+    of the plain version: the spread of a sum of per-key rounding errors
+    of p_j v_j."""
+    B, H, Sq, dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqd,bksd->bkgqs",
+                     q.float().reshape(B, KV, H // KV, Sq, dh),
+                     k.float()) / dh ** 0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    hide = torch.zeros((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        hide |= kpos > qpos
+    if window is not None:
+        hide |= kpos <= qpos - window
+    p = torch.softmax(s.masked_fill(hide, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bksd->bkgqd", p * p,
+                        v.float() ** 2).sqrt().reshape(B, H, Sq, dh)
+
+
+def flash_compare(torch, kernel, ref, q, k, v, causal, window, tol,
+                  rounding=False, **blocks):
+    """Kernel vs plain version on one case; raises where |difference| >
+    tol + tol * |plain|. With `rounding` (bf16), each element is held
+    instead to 2^-7 (|o| + 4 sqrt(sum_j p_j^2 v_j^2)), o the plain
+    output. Each side rounds its output to bf16, so the two may differ by
+    one bf16 step, at most 2^-7 |o|. Each side also rounds every p_j to
+    bf16 (at most 2^-8 relative), the kernel before normalising, so the
+    two differ per key by up to 2^-7 p_j |v_j|; summed over the row's keys
+    that stays within 4 x 2^-7 sqrt(sum_j p_j^2 v_j^2) in the worst case
+    for rows of up to 16 keys (Cauchy-Schwarz), and ~10 standard
+    deviations out for longer rows. Late rows of a long prompt average
+    ~1-2k values of a few hundredths, and there the limit is ~1.5e-3
+    against tol's ~2e-2. Returns the max |difference|, its largest share
+    of the limit, and the median |o|."""
+    got = kernel(q, k, v, causal=causal, window=window, **blocks).float()
+    want = ref(q, k, v, causal=causal, window=window).float()
+    if rounding:
+        limit = 2.0 ** -7 * (want.abs() + 4 * rounding_spread(
+            torch, q, k, v, causal, window))
+    else:
+        limit = tol + tol * want.abs()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("flash_attention kernel gave non-finite values")
+    err = (got - want).abs()
+    share = float((err / limit).max())
+    if bool((err > limit).any()):
+        what = "the rounding bound" if rounding else f"tol {tol}"
+        raise AssertionError(f"flash_attention kernel != plain version: max "
+                             f"|err| {float(err.max()):.3g}, {share:.3g}x "
+                             f"{what} "
+                             f"({tuple(q.shape)}, causal={causal}, "
+                             f"window={window}, {q.dtype})")
+    return float(err.max()), share, float(want.abs().median())
+
+
+def visible_pairs(np, Sq, Sk, causal, window):
+    """(q, k) pairs the mask lets through: the work of one (batch, head)."""
+    qpos = np.arange(Sq)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def time_events(torch, fn, iters, warmup=2):
+    """Device ms per call: CUDA events around `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_host(torch, fn, iters):
+    """Host ms per call from Python, each call synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def flash_phase(torch, np, kernel, card):
+    """Phase 5: the flash kernel against its plain version, and its times
+    at the serving shape. Returns the kernel's entry of the JSON line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    errs = []
+    for dtype in ("float32", "bfloat16"):
+        for S, H, KV, dh, bq, bk in FLASH_SHAPES:
+            q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + H)
+            for causal, window in FLASH_MASKS:
+                errs.append(flash_compare(
+                    torch, kernel, attention_ref, q, k, v, causal, window,
+                    FLASH_TOL[dtype], block_q=bq, block_k=bk)[0])
+    n_sweep = len(errs)
+    log(f"[flash] kernel == plain version on the reference's {n_sweep} "
+        f"sweep cases (max |err| {max(errs):.3g}) [{card}]")
+    for dtype in ("float32", "bfloat16"):     # phase 7's ragged prefill
+        q, k, v = flash_inputs(torch, np, MATCH_PROMPT, 32, 8, 128, dtype, 1,
+                               B=MATCH_B)
+        bf16 = dtype == "bfloat16"
+        err, share, typical = flash_compare(
+            torch, kernel, attention_ref, q, k, v, True, None,
+            FLASH_TOL[dtype], bf16)
+        errs.append(err)
+        log(f"[flash] B={MATCH_B} S={MATCH_PROMPT} causal {dtype}: max |err| "
+            f"{err:.3g}, {share:.3g}x "
+            f"{'the rounding bound' if bf16 else 'tol'}; median |o| "
+            f"{typical:.3g}")
+
+    B, S, H, KV, dh = SERVE_B, SERVE_S, 32, 8, 128
+    q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", 0, B=B)
+    err, share, typical = flash_compare(
+        torch, kernel, attention_ref, q, k, v, True, None,
+        FLASH_TOL["bfloat16"], rounding=True)
+    errs.append(err)
+    run = lambda: kernel(q, k, v, causal=True)           # noqa: E731
+    ms = time_events(torch, run, 20)
+    launch_ms = time_host(torch, run, 10)
+    plain_ms = time_events(torch, lambda: attention_ref(q, k, v), 3, 1)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        lib = lambda: F.scaled_dot_product_attention(    # noqa: E731
+            qc, kc, vc, is_causal=True, enable_gqa=True)
+    else:
+        kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (kc, vc))
+        lib = lambda: F.scaled_dot_product_attention(    # noqa: E731
+            qc, kr, vr, is_causal=True)
+    library_ms = time_events(torch, lib, 20)
+    flops = 4 * dh * B * H * visible_pairs(np, S, S, True, None)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
+    by_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes \
+        else (by_bytes, "bytes")
+    log(f"[flash] B={B} S={S} H={H} KV={KV} dh={dh} causal bf16: max |err| "
+        f"{err:.3g}, {share:.3g}x the rounding bound; median |o| "
+        f"{typical:.3g}; kernel "
+        f"{ms:.3f} ms on the device, {launch_ms:.3f} ms per launch from "
+        f"Python; plain version {plain_ms:.3f} ms; "
+        f"scaled_dot_product_attention {library_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B)"
+        f" [{card}]")
+    del q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+            "launches": None, "max_abs_err": max(errs), "ms": ms,
+            "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "cases": len(errs),
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "dh": dh,
+                      "dtype": "bfloat16", "causal": True}}
+
+
+def model_setup(torch, dtype):
+    """qwen3-4b at full width on the card, seeded random weights in `dtype`
+    (None: the config's bf16), `attention_impl="pallas_flash"`."""
+    from repro_torch.configs import get_model
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models import model
+    cfg = get_model(SERVE_ARCH)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "serve", SERVE_S, SERVE_B, "prefill"), remat=False,
+        attention_impl="pallas_flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen, cfg, device="cuda", dtype_override=dtype)
+    return model, cfg, run, params
+
+
+def serve_tokens(torch, np, cfg):
+    """The serving path's prompts: SERVE_B x SERVE_S tokens, numpy seed 0."""
+    rng = np.random.RandomState(0)
+    return torch.tensor(rng.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S)),
+                        dtype=torch.int32, device="cuda")
+
+
+def finite(torch, x, what):
+    if not bool(torch.isfinite(x.float()).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+
+
+def serve_phase(torch, np, card):
+    """Phase 6: prefill + greedy decode of qwen3-4b at full width, bf16."""
+    from repro_torch.models.params import count_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, cfg, run, params = model_setup(torch, None)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{count_params(params) / 1e9:.3f} B params "
+        f"in bf16 on the card in {time.perf_counter() - t0:.2f} s")
+    tokens = serve_tokens(torch, np, cfg)
+    max_len = SERVE_S + SERVE_NEW
+    times = []
+    for _ in range(2):                       # cold, then timed
+        t0 = time.perf_counter()
+        logits, caches = model.forward_prefill(
+            cfg, run, params, {"tokens": tokens}, max_len=max_len)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        finite(torch, logits, "prefill")
+        if logits.shape != (SERVE_B, 1, cfg.padded_vocab):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NEW):
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).int()
+        logits, caches = model.forward_decode(cfg, run, params,
+                                              {"tokens": tok}, caches)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    finite(torch, logits, "decode")
+    if caches["cache_len"].tolist() != [max_len] * SERVE_B:
+        raise AssertionError(f"cache_len {caches['cache_len'].tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] prefill {SERVE_B} x {SERVE_S} tokens: {times[0] * 1e3:.1f} "
+        f"ms cold, {times[1] * 1e3:.1f} ms warm; decode {SERVE_NEW} steps: "
+        f"{decode_s * 1e3 / SERVE_NEW:.2f} ms per step, "
+        f"{SERVE_B * SERVE_NEW / decode_s:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+
+
+def match_phase(torch, np, card):
+    """Phase 7: prefill + decode == forward_train, full width, fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, cfg, run, params = model_setup(torch, torch.float32)
+    rng = np.random.RandomState(1)
+    tokens = torch.tensor(rng.randint(0, cfg.vocab_size, (MATCH_B, MATCH_S)),
+                          dtype=torch.int32, device="cuda")
+    full, _ = model.forward_train(cfg, run, params, {"tokens": tokens})
+    logits, caches = model.forward_prefill(
+        cfg, run, params, {"tokens": tokens[:, :MATCH_PROMPT]},
+        max_len=MATCH_S)
+    finite(torch, full, "forward_train")
+    err_prefill = float((logits[:, -1] - full[:, MATCH_PROMPT - 1]).abs()
+                        .max())
+    err_decode = 0.0
+    for i in range(MATCH_PROMPT, MATCH_S):
+        logits, caches = model.forward_decode(
+            cfg, run, params, {"tokens": tokens[:, i:i + 1]}, caches)
+        err_decode = max(err_decode, float(
+            (logits[:, 0] - full[:, i]).abs().max()))
+    scale = float(full.abs().max())
+    log(f"[match] fp32, TF32 off: prefill of {MATCH_B} x {MATCH_PROMPT} "
+        f"tokens + {MATCH_S - MATCH_PROMPT} decode steps vs forward_train "
+        f"over {MATCH_S}: max |err| {err_prefill:.3g} (prefill, tol "
+        f"{MATCH_TOL_PREFILL}), {err_decode:.3g} (decode, tol "
+        f"{MATCH_TOL_DECODE}); max |logit| {scale:.3g} [{card}]")
+    if not (err_prefill < MATCH_TOL_PREFILL and err_decode < MATCH_TOL_DECODE):
+        raise AssertionError("prefill + decode != forward_train")
+    del params, caches, logits, full
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -294,6 +613,7 @@ def main():
     import numpy as np
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.fused_tlb.kernel import fused_tlb_round
     from repro_torch.kernels.fused_tlb.ref import fused_tlb_access_ref
     from repro_torch.sim import runner
@@ -303,14 +623,17 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load("fused_tlb")
-    log(f"[build] fused_tlb.cu -> {_build.library_path('fused_tlb').name} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    report = _build.library_path("fused_tlb").with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] ptxas: {line.strip()}")
+    names = ("fused_tlb", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
+        list(pool.map(_build.load, names))
+    for name in names:
+        log(f"[build] {name}.cu -> {_build.library_path(name).name}")
+        report = _build.library_path(name).with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] both sources in {time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernel against its plain version ----------------------------
     cases = []
@@ -386,6 +709,16 @@ def main():
     log(f"[timed] run_mix mask 3DS+BLK 9000 cycles: {dt:.2f} s, "
         f"{9000 / dt:.1f} simulated cycles/s [{card}]")
 
+    # ---- 5-7. the model's serving path and its kernel -------------------
+    flash = flash_phase(torch, np, flash_attention_bhsd, card)
+    flash_attention_bhsd.launches = 0
+    serve_phase(torch, np, card)
+    flash["launches"] = flash_attention_bhsd.launches
+    if flash["launches"] != 36 * 2:
+        raise AssertionError(f"flash_attention launched {flash['launches']} "
+                             f"times in 2 prefills of 36 layers")
+    match_phase(torch, np, card)
+
     l2 = timings[0]
     print(json.dumps({"kernels": [{
         "name": "fused_tlb", "route": "cuda",
@@ -395,7 +728,7 @@ def main():
         "ms": l2["ms"], "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
-        "library_ms": None, "shapes": timings}]}), flush=True)
+        "library_ms": None, "shapes": timings}, flash]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@
 `repro_torch` mirrors `repro`'s module paths and public names: the
 simulator's main path (`sim.runner.run_mix` scanning `sim.memsys.step`
 once per simulated cycle) and the policy mechanisms it draws on
-(`core.*`). The fused probe+fill round of the shared caches runs in a
-hand-written CUDA kernel (`kernels/fused_tlb`, source `csrc/fused_tlb.cu`).
+(`core.*`); the dense model's serving path (`models.model`:
+`forward_prefill`, `forward_decode`, `forward_train`) with its configs
+(`configs`). The fused probe+fill round of the shared caches and the
+model's full-sequence attention run in hand-written CUDA kernels
+(`kernels/fused_tlb`, `kernels/flash_attention`; sources in `csrc/`).
 
 The package imports `torch` and `numpy` only. Its entry points run on the
 card unless the caller names another device (`device="cpu"`); see

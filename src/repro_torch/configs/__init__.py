@@ -1,0 +1,7 @@
+"""Model and run configurations, copied from the reference's JAX-free
+`repro.configs` (same names, same values) so the port imports nothing of it."""
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig  # noqa: F401
+from repro_torch.configs.registry import (  # noqa: F401
+    ARCHS, all_cells, get_model, get_run_config, reduced_model,
+)
+from repro_torch.configs.shapes import ALL_SHAPES, SHAPES_BY_NAME  # noqa: F401

@@ -1,0 +1,30 @@
+"""Public flash attention op in the model's (B, S, H, dh) layout.
+
+A CPU tensor goes to the plain PyTorch version (`ref.py`); any other
+device goes to the CUDA kernel (`kernel.py`), which launches or raises.
+Nothing falls back from one to the other. Both routes accept and reject
+the same shapes (`kernel.check_tiling`).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels.flash_attention.kernel import (
+    check_tiling, flash_attention_bhsd)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
+                    block_q: int = 512, block_k: int = 512):
+    """q: (B, S, H, dh); k, v: (B, S, KV, dh) -> (B, S, H, dh).
+
+    Axes 1 and 2 are swapped as views; the kernel reads the strided layout
+    and writes its output in q's layout, so no copy is made."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type == "cpu":
+        check_tiling(q.shape[1], k.shape[1], block_q, block_k)
+        out = attention_ref(qt, kt, vt, causal=causal, window=window)
+    else:
+        out = flash_attention_bhsd(qt, kt, vt, causal=causal, window=window,
+                                   block_q=block_q, block_k=block_k)
+    return out.transpose(1, 2)
