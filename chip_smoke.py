@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-  1. build  -- compile `src/repro_torch/csrc/fused_tlb.cu` and
-               `flash_attention.cu` for sm_90a, one nvcc each, in parallel;
+  1. build  -- compile `src/repro_torch/csrc/fused_tlb.cu`,
+               `flash_attention.cu`, `ssd_scan.cu` and
+               `paged_attention.cu` for sm_90a, one nvcc each, in parallel;
   2. kernel -- the `fused_tlb` kernel against its plain PyTorch version on
                the card, element for element (exact: integer outputs), at
                both main-path shapes, the reference kernel test's shapes
@@ -40,7 +41,41 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   7. match  -- the same model in fp32 (TF32 off for matmul and cuDNN):
                `forward_prefill` of 2 x 496 tokens plus 16 `forward_decode`
                steps against `forward_train` over the same 512 tokens
-               (logits within 2e-3 after prefill, 5e-3 in decode).
+               (logits within 2e-3 after prefill, 5e-3 in decode);
+  8. ssd    -- the `ssd_scan` kernel (`ssd_intra_chunk`) against its plain
+               version on the card: the reference test's 3 cases and a
+               ragged chunk of 248 rows at atol = rtol = 1e-4, with
+               `ops.ssd_scan` against the O(S) recurrence on the same
+               inputs; the serving shape (mamba2-1.3b prefill, B=4,
+               S=2048, 64 heads of 64, d_state 128, chunks of 256) held to
+               a limit from each output's sum of |terms| (`ssd_compare`),
+               checked to reject a wrong head or q tile; there the
+               kernel's device time, its time per launch from Python, the
+               plain version's time and the bound;
+  9. mamba2 -- mamba2-1.3b at full width and depth (48 layers) in bf16
+               with random weights from a seeded generator on the card: 4
+               prompts of 2048 tokens through `forward_prefill`, twice
+               (cold, then timed), then 64 greedy `forward_decode` steps;
+               ssd launches == 48 per prefill, finite logits;
+ 10. m-match -- the same model in fp32, TF32 off: `forward_prefill` of 2 x
+               496 tokens (chunks of 248 rows) plus 16 `forward_decode`
+               steps against `forward_train` over the same 512 tokens
+               (chunks of 256), within 2e-3 after prefill, 5e-3 in decode;
+ 11. paged  -- the `paged_attention` kernel against its plain version on
+               the reference test's 6 cases (atol = rtol = 2e-5 fp32,
+               3e-2 bf16); then a paged KV pool at qwen3-4b's serving
+               widths built through `repro_torch.memmgr` (36 layers, 520
+               pages of 128 tokens, 8 KV heads of 128, bf16; 32 sequences
+               under 4 ASIDs, seeded prompt lengths up to 2040 with 128,
+               1024 and 1920 among them), the prompts' K/V written by this
+               script through the block table, then 8 decode steps of
+               `append_token_alloc` and, per layer, `write_kv` and
+               `paged_attention` on `gather_block_table`'s table: every
+               launch held to the plain version, the plain version at the
+               last step held to dense attention over this script's own
+               contiguous copy of the tokens (bf16 rounding limit of
+               `flash_compare`), launches == 36 x 8; one layer's launch
+               timed against its bound.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -153,9 +188,24 @@ FLASH_MASKS = [(True, None), (False, None), (True, 96)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol = rtol
 # the serving path's flash call: qwen3-4b prefill of 4 x 2048 tokens
 SERVE_ARCH = "qwen3-4b"
+MAMBA_ARCH = "mamba2-1.3b"
 SERVE_B, SERVE_S, SERVE_NEW = 4, 2048, 64
 MATCH_B, MATCH_PROMPT, MATCH_S = 2, 496, 512
 MATCH_TOL_PREFILL, MATCH_TOL_DECODE = 2e-3, 5e-3
+# the reference's SSD test sweep (tests/test_kernels.py): (S, nh, hd, ds,
+# chunk), B=2; then a ragged chunk of 248 rows (S = 496)
+SSD_SHAPES = [(64, 4, 16, 16, 16), (128, 8, 32, 16, 32), (96, 2, 64, 32, 32),
+              (496, 4, 64, 128, 248)]
+SSD_TOL = 1e-4
+# the serving path's ssd call: mamba2-1.3b prefill of 4 x 2048 tokens
+SSD_SERVE = dict(B=4, S=2048, nh=64, hd=64, ds=128, Q=256)
+# the reference's paged attention test sweep: (B, H, KV, dh, page, npp)
+PAGED_SHAPES = [(4, 8, 4, 64, 16, 6), (2, 4, 4, 128, 32, 4),
+                (3, 16, 2, 64, 8, 10)]
+PAGED_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
+# the paged pool at qwen3-4b's serving widths
+POOL = dict(n_layers=36, page=128, n_kv=8, dh=128, heads=32, seqs=32,
+            pages_per_seq=16, n_pages=520, asids=4, steps=8)
 
 
 def log(msg):
@@ -503,13 +553,14 @@ def flash_phase(torch, np, kernel, card):
                       "dtype": "bfloat16", "causal": True}}
 
 
-def model_setup(torch, dtype):
-    """qwen3-4b at full width on the card, seeded random weights in `dtype`
-    (None: the config's bf16), `attention_impl="pallas_flash"`."""
+def model_setup(torch, dtype, arch=SERVE_ARCH):
+    """`arch` (qwen3-4b) at full width on the card, seeded random weights
+    in `dtype` (None: each leaf's own dtype, bf16 weights),
+    `attention_impl="pallas_flash"`."""
     from repro_torch.configs import get_model
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.models import model
-    cfg = get_model(SERVE_ARCH)
+    cfg = get_model(arch)
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "serve", SERVE_S, SERVE_B, "prefill"), remat=False,
         attention_impl="pallas_flash")
@@ -530,14 +581,15 @@ def finite(torch, x, what):
         raise AssertionError(f"{what}: non-finite logits")
 
 
-def serve_phase(torch, np, card):
-    """Phase 6: prefill + greedy decode of qwen3-4b at full width, bf16."""
+def serve_phase(torch, np, card, arch=SERVE_ARCH, tag="serve"):
+    """Phases 6 and 9: prefill + greedy decode of `arch` at full width,
+    bf16."""
     from repro_torch.models.params import count_params
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, cfg, run, params = model_setup(torch, None)
+    model, cfg, run, params = model_setup(torch, None, arch)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{count_params(params) / 1e9:.3f} B params "
         f"in bf16 on the card in {time.perf_counter() - t0:.2f} s")
     tokens = serve_tokens(torch, np, cfg)
@@ -563,7 +615,7 @@ def serve_phase(torch, np, card):
     if caches["cache_len"].tolist() != [max_len] * SERVE_B:
         raise AssertionError(f"cache_len {caches['cache_len'].tolist()}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] prefill {SERVE_B} x {SERVE_S} tokens: {times[0] * 1e3:.1f} "
+    log(f"[{tag}] prefill {SERVE_B} x {SERVE_S} tokens: {times[0] * 1e3:.1f} "
         f"ms cold, {times[1] * 1e3:.1f} ms warm; decode {SERVE_NEW} steps: "
         f"{decode_s * 1e3 / SERVE_NEW:.2f} ms per step, "
         f"{SERVE_B * SERVE_NEW / decode_s:.1f} tokens/s; peak memory "
@@ -572,11 +624,12 @@ def serve_phase(torch, np, card):
     torch.cuda.empty_cache()
 
 
-def match_phase(torch, np, card):
-    """Phase 7: prefill + decode == forward_train, full width, fp32."""
+def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match"):
+    """Phases 7 and 10: prefill + decode == forward_train, full width,
+    fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model, cfg, run, params = model_setup(torch, torch.float32)
+    model, cfg, run, params = model_setup(torch, torch.float32, arch)
     rng = np.random.RandomState(1)
     tokens = torch.tensor(rng.randint(0, cfg.vocab_size, (MATCH_B, MATCH_S)),
                           dtype=torch.int32, device="cuda")
@@ -594,15 +647,348 @@ def match_phase(torch, np, card):
         err_decode = max(err_decode, float(
             (logits[:, 0] - full[:, i]).abs().max()))
     scale = float(full.abs().max())
-    log(f"[match] fp32, TF32 off: prefill of {MATCH_B} x {MATCH_PROMPT} "
+    log(f"[{tag}] {cfg.name} fp32, TF32 off: prefill of {MATCH_B} x {MATCH_PROMPT} "
         f"tokens + {MATCH_S - MATCH_PROMPT} decode steps vs forward_train "
         f"over {MATCH_S}: max |err| {err_prefill:.3g} (prefill, tol "
         f"{MATCH_TOL_PREFILL}), {err_decode:.3g} (decode, tol "
         f"{MATCH_TOL_DECODE}); max |logit| {scale:.3g} [{card}]")
     if not (err_prefill < MATCH_TOL_PREFILL and err_decode < MATCH_TOL_DECODE):
-        raise AssertionError("prefill + decode != forward_train")
+        raise AssertionError(f"{cfg.name}: prefill + decode != "
+                             "forward_train")
     del params, caches, logits, full
     torch.cuda.empty_cache()
+
+
+EPS32 = 2.0 ** -23                     # float32 machine epsilon
+
+
+def ssd_limits(torch, ref, x, dA, Bm, Cm):
+    """Per-element limits for the kernel against its plain version at a
+    model shape, from each output's sum of |terms|.
+
+    Both sides sum the same products in other orders: y[q, p] and S[p, d]
+    are chains of at most n = ds + Q float32 products and sums (G over
+    ds, then over the chunk's rows), each rounding at most eps relative,
+    so they differ by at most 2 n eps sum|terms|. Each side also rounds
+    the cumsum of dA, by at most eps sum_i |cs_i| (its partial sums), and
+    that enters exp(cs[q] - cs[s]) and exp(cs_end - cs[s]) as a relative
+    error: 4 eps sum_i |cs_i| sum|terms| for the two sides and two ends.
+    sum|terms| is the plain version on |x|, |B|, |C| (L and the decays
+    are positive). A missing row of one s tile already moves y by ~1/Q of
+    sum|terms|, above this limit; `ssd_compare` checks that a wrong head
+    or q tile breaks it."""
+    ys, ss, dec = ref(x.abs(), dA, Bm.abs(), Cm.abs())
+    e_cs = EPS32 * torch.cumsum(dA, dim=2).abs().sum(dim=2)   # (B, nc, nh)
+    rel = 2 * (Bm.shape[-1] + x.shape[2]) * EPS32 + 4 * e_cs
+    return (rel[:, :, None, :, None] * ys, rel[:, :, :, None, None] * ss,
+            (4 * e_cs + EPS32) * dec)
+
+
+def ssd_compare(torch, kernel, ref, args, tol=None):
+    """Kernel vs plain version on one case: every output within tol +
+    tol * |plain| or, without tol, within `ssd_limits`. Returns the max
+    |difference| and its largest share of the limit; raises on a miss."""
+    got = kernel(*args)
+    want = ref(*args)
+    if tol is None:
+        limits = ssd_limits(torch, ref, *args)
+    else:
+        limits = [tol + tol * w.abs() for w in want]
+    torch.cuda.synchronize()
+    err, share = 0.0, 0.0
+    for name, g, w, lim in zip(("y", "S", "decay"), got, want, limits):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd kernel gave non-finite {name}")
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / lim).max()))
+        if bool((d > lim).any()):
+            raise AssertionError(f"ssd kernel != plain version on {name}: "
+                                 f"max |err| {float(d.max()):.3g}, "
+                                 f"{float((d / lim).max()):.3g}x the limit "
+                                 f"({tuple(args[0].shape)})")
+    if tol is None:     # the limit must not pass a wrong head or q tile
+        for wrong in (want[0].roll(1, dims=3), want[0].roll(64, dims=2)):
+            if not bool(((got[0] - wrong).abs() > limits[0]).any()):
+                raise AssertionError("ssd limit passes a wrong head or tile")
+    return err, share
+
+
+def ssd_phase(torch, np, card):
+    """Phase 8: the ssd kernel against its plain version, and its times at
+    the serving shape. Returns the kernel's entry of the JSON line."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import (ssd_intra_chunk_ref,
+                                                  ssd_recurrence_ref)
+    errs = []
+    for S, nh, hd, ds, chunk in SSD_SHAPES:
+        rng = np.random.RandomState(S + nh)        # the reference test's
+        arrays = [rng.randn(2, S, nh, hd) * .5,
+                  np.abs(rng.randn(2, S, nh)) * .1 + .02,
+                  -np.abs(rng.randn(nh)) * .5 - .1,
+                  rng.randn(2, S, ds) * .5, rng.randn(2, S, ds) * .5]
+        x, dt, A, B, C = (torch.tensor(a, dtype=torch.float32, device="cuda")
+                          for a in arrays)
+        errs.append(ssd_compare(torch, ssd_intra_chunk, ssd_intra_chunk_ref,
+                                ops.chunk_inputs(x, dt, A, B, C, chunk),
+                                SSD_TOL)[0])
+        y, h = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        y_ref, h_ref = ssd_recurrence_ref(x, dt, A, B, C)
+        for got, want in ((y, y_ref), (h, h_ref)):
+            if not bool(((got - want).abs()
+                         <= SSD_TOL + SSD_TOL * want.abs()).all()):
+                raise AssertionError(f"ops.ssd_scan != recurrence (S={S})")
+    log(f"[ssd] kernel == plain version on the reference's 3 sweep cases "
+        f"and a ragged chunk of 248 rows (atol = rtol = {SSD_TOL}; max "
+        f"|err| {max(errs):.3g}); ops.ssd_scan == the O(S) recurrence on "
+        f"all four [{card}]")
+
+    sv = SSD_SERVE
+    B_, S, nh, hd, ds, Q = (sv[k] for k in ("B", "S", "nh", "hd", "ds", "Q"))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, B, C = draw(B_, S, nh, hd) * .5, draw(B_, S, ds) * .5, \
+        draw(B_, S, ds) * .5
+    dt = torch.rand((B_, S, nh), generator=gen, device="cuda") * .1 + .02
+    A = -(torch.rand((nh,), generator=gen, device="cuda") * .5 + .1)
+    args = ops.chunk_inputs(x, dt, A, B, C, Q)
+    err, share = ssd_compare(torch, ssd_intra_chunk, ssd_intra_chunk_ref,
+                             args)
+    errs.append(err)
+    run = lambda: ssd_intra_chunk(*args)                  # noqa: E731
+    ms = time_events(torch, run, 20)
+    launch_ms = time_host(torch, run, 10)
+    plain_ms = time_events(torch, lambda: ssd_intra_chunk_ref(*args), 3, 1)
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    # per (b, chunk): G on the s <= q pairs once (2 ds flop a pair); per
+    # head: M = G L (a multiply and an exp a pair), y (2 hd a pair), the
+    # decay-weighted x (Q hd), S (2 Q hd ds), the cumsum (Q)
+    ops_n = B_ * nc * (2 * ds * pairs + nh * (
+        2 * pairs + 2 * hd * pairs + Q * hd + 2 * Q * hd * ds + Q))
+    nbytes = 4 * (2 * args[0].numel() + args[1].numel() + args[2].numel()
+                  + args[3].numel() + B_ * nc * nh * (hd * ds + 1))
+    by_ops = ops_n / CUDA_CORE_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes \
+        else (by_bytes, "bytes")
+    log(f"[ssd] B={B_} S={S} nh={nh} hd={hd} ds={ds} Q={Q} fp32: max |err| "
+        f"{err:.3g}, {share:.3g}x the sum-of-|terms| limit; kernel "
+        f"{ms:.3f} ms on the device, {launch_ms:.3f} ms per launch from "
+        f"Python; plain version {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({ops_n:.4g} fp32 ops at 67 TFLOP/s, {nbytes:.4g} "
+        f"B at 3.35 TB/s) [{card}]")
+    del x, B, C, dt, args
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
+            "launches": None, "max_abs_err": max(errs), "ms": ms,
+            "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": len(errs), "shape": dict(sv, dtype="float32")}
+
+
+def dense_decode(torch, q, k, v, lens):
+    """One-token attention over contiguous k/v (B, T, KV, dh), written
+    apart from the paged code: an fp32 softmax over positions < lens (a
+    length-0 row gives 0), p rounded to v's dtype before p.v. Returns the
+    output (B, H, dh) in fp32 and sqrt(sum_j p_j^2 v_j^2), the spread of
+    the per-key rounding errors that `flash_compare`'s limit uses."""
+    B, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgd,btkd->bkgt", q.float().reshape(B, KV, H // KV, dh),
+                     k.float()) / dh ** 0.5
+    live = torch.arange(T, device=q.device)[None, :] < lens[:, None]
+    p = torch.softmax(s.masked_fill(~live[:, None, None, :], float("-inf")),
+                      dim=-1).nan_to_num(0.0)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(), v.float())
+    spread = torch.einsum("bkgt,btkd->bkgd", p * p, v.float() ** 2).sqrt()
+    return o.reshape(B, H, dh), spread.reshape(B, H, dh)
+
+
+def rounding_check(torch, got, want, spread, what):
+    """`flash_compare`'s bf16 limit, 2^-7 (|want| + 4 spread); returns the
+    max |difference| and its largest share of the limit."""
+    err = (got.float() - want.float()).abs()
+    limit = 2.0 ** -7 * (want.float().abs() + 4 * spread)
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    if bool((err > limit).any()):
+        raise AssertionError(f"{what}: max |err| {float(err.max()):.3g}, "
+                             f"{float((err / limit).max()):.3g}x the "
+                             "rounding bound")
+    return float(err.max()), float((err / limit).max())
+
+
+def paged_phase(torch, np, card):
+    """Phase 11: the paged kernel against its plain version, then the
+    paged pool's decode read at qwen3-4b's widths. Returns the kernel's
+    entry of the JSON line."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.memmgr import kv_cache as kvc
+    errs = []
+    for dtype in ("float32", "bfloat16"):
+        tol = PAGED_TOL[dtype]
+        for B, H, KV, dh, page, npp in PAGED_SHAPES:
+            rng = np.random.RandomState(B * H)     # the reference test's
+            P = npp * B + 4
+            dt = getattr(torch, dtype)
+            q, kp, vp = (torch.tensor(a, dtype=torch.float32,
+                                      device="cuda").to(dt)
+                         for a in (rng.randn(B, H, dh),
+                                   rng.randn(P, page, KV, dh),
+                                   rng.randn(P, page, KV, dh)))
+            bt = torch.tensor(rng.choice(P, (B, npp), replace=False),
+                              dtype=torch.int32, device="cuda")
+            sl = torch.tensor(rng.randint(1, npp * page + 1, B),
+                              dtype=torch.int32, device="cuda")
+            got = paged_attention(q, kp, vp, bt, sl).float()
+            want = paged_attention_ref(q, kp, vp, bt, sl).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            errs.append(float(err.max()))
+            if bool((err > tol + tol * want.abs()).any()):
+                raise AssertionError(f"paged kernel != plain version "
+                                     f"({B}, {H}, {KV}, {dh}, {page}, {npp})"
+                                     f" {dtype}: max |err| {errs[-1]:.3g}")
+    log(f"[paged] kernel == plain version on the reference's 6 sweep cases "
+        f"(atol = rtol = 2e-5 fp32, 3e-2 bf16; max |err| {max(errs):.3g}) "
+        f"[{card}]")
+
+    L, page, KV, dh, H = (POOL[k] for k in ("n_layers", "page", "n_kv", "dh",
+                                            "heads"))
+    nseq, pps, steps = POOL["seqs"], POOL["pages_per_seq"], POOL["steps"]
+    cfg = kvc.PoolConfig(n_pages=POOL["n_pages"], page_size=page, n_kv=KV,
+                         head_dim=dh, n_layers=L, max_seqs=nseq,
+                         pages_per_seq=pps)
+    torch.cuda.reset_peak_memory_stats()
+    pool = kvc.init(cfg, device="cuda")
+    rng = np.random.RandomState(11)
+    lens = rng.randint(1, pps * page - steps + 1, nseq)
+    lens[:3] = (page, 8 * page, 15 * page)   # 128, 1024, 1920: the first
+    # decode token opens a page
+    for slot, ln in enumerate(lens):
+        pool, ok = kvc.admit_seq(cfg, pool, slot, slot % POOL["asids"],
+                                 int(ln))
+        if not bool(ok):
+            raise AssertionError(f"admit_seq refused slot {slot} ({ln})")
+    # the script's own contiguous copy of every token's K/V, and the prompt
+    # tokens written into the pool through the block table
+    T = pps * page
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    kc = torch.empty((L, nseq, T, KV, dh), dtype=torch.bfloat16,
+                     device="cuda")
+    vc = torch.empty_like(kc)
+    for copy in (kc, vc):
+        for layer in range(L):
+            copy[layer] = torch.randn((nseq, T, KV, dh), generator=gen,
+                                      device="cuda")
+    slots = torch.arange(nseq, dtype=torch.int32, device="cuda")
+    leaf = kvc.gather_block_table(cfg, pool, slots).long()
+    b_idx = torch.cat([torch.full((int(n),), b) for b, n in enumerate(lens)]
+                      ).cuda()
+    t_idx = torch.cat([torch.arange(int(n)) for n in lens]).cuda()
+    phys, off = leaf[b_idx, t_idx // page], t_idx % page
+    for layer in range(L):
+        pool.k[layer][phys, off] = kc[layer][b_idx, t_idx]
+        pool.v[layer][phys, off] = vc[layer][b_idx, t_idx]
+
+    paged_attention.launches = 0
+    shares, t0 = [], time.perf_counter()
+    for step in range(steps):
+        for slot in range(nseq):
+            pool, ok = kvc.append_token_alloc(cfg, pool, slot)
+            if not bool(ok):
+                raise AssertionError(f"append_token_alloc refused {slot}")
+        seq_lens = pool.seq_lens[slots.long()]
+        table = kvc.gather_block_table(cfg, pool, slots)
+        pos = (seq_lens - 1).long()
+        gathered = table.long()
+        for layer in range(L):
+            k_new = torch.randn((nseq, KV, dh), generator=gen, device="cuda")
+            v_new = torch.randn((nseq, KV, dh), generator=gen, device="cuda")
+            pool, fault = kvc.write_kv(cfg, pool, layer, slots, k_new, v_new)
+            kc[layer][slots.long(), pos] = k_new.to(torch.bfloat16)
+            vc[layer][slots.long(), pos] = v_new.to(torch.bfloat16)
+            q = torch.randn((nseq, H, dh), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            out = ops.paged_attention(q, pool.k[layer], pool.v[layer], table,
+                                      seq_lens)
+            plain = paged_attention_ref(q, pool.k[layer], pool.v[layer],
+                                        table, seq_lens)
+            kg = pool.k[layer][gathered].reshape(nseq, T, KV, dh)
+            vg = pool.v[layer][gathered].reshape(nseq, T, KV, dh)
+            _, spread = dense_decode(torch, q, kg, vg, seq_lens)
+            err, share = rounding_check(
+                torch, out, plain, spread,
+                f"paged kernel != plain version (step {step}, layer {layer})")
+            errs.append(err)
+            shares.append(share)
+            if bool(fault.any()):
+                raise AssertionError(f"write_kv faulted at step {step}")
+            if step == steps - 1:      # the pool holds what was written
+                dense, spread_c = dense_decode(torch, q, kc[layer],
+                                               vc[layer], seq_lens)
+                rounding_check(torch, plain, dense, spread_c,
+                               f"plain version != dense attention over the "
+                               f"contiguous copy (layer {layer})")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = paged_attention.launches
+    if launches != L * steps:
+        raise AssertionError(f"paged_attention launched {launches} times in "
+                             f"{steps} steps of {L} layers")
+    want_lens = torch.tensor(lens + steps, dtype=torch.int32, device="cuda")
+    if not torch.equal(seq_lens, want_lens):
+        raise AssertionError("pool lengths != prompt + decode steps")
+    pressure = kvc.pool_pressure(cfg, pool)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[paged] pool {L} layers x {cfg.n_pages} pages x {page} tokens x "
+        f"{KV} x {dh} bf16 ({2 * pool.k.numel() * 2 / 1e9:.2f} GB of K+V); "
+        f"{nseq} sequences under {POOL['asids']} ASIDs, {int(lens.sum())} "
+        f"prompt tokens, {pressure.free_pages} pages free after {steps} "
+        f"steps; {launches} launches == {L} x {steps}, each == plain "
+        f"version (largest share of the rounding bound {max(shares):.3g}); "
+        f"plain == dense attention over the contiguous copy at the last "
+        f"step; {loop_s:.2f} s for the loop with its checks; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+
+    layer = L - 1                       # one layer's launch, last step
+    args = (q, pool.k[layer], pool.v[layer], table, seq_lens)
+    run = lambda: paged_attention(*args)                  # noqa: E731
+    ms = time_events(torch, run, 20)
+    launch_ms = time_host(torch, run, 10)
+    plain_ms = time_events(torch, lambda: paged_attention_ref(*args), 3, 1)
+    tokens = int(seq_lens.sum())
+    nbytes = (2 * tokens * KV * dh * 2          # live K and V, bf16
+              + 2 * q.numel() * 2 + table.numel() * 4 + nseq * 4)
+    flops = 4 * H * dh * tokens                 # q.k and p.v
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops \
+        else (by_ops, "operations")
+    log(f"[paged] one layer's launch, B={nseq} H={H} KV={KV} dh={dh} page="
+        f"{page}, {tokens} live tokens, bf16: kernel {ms:.4f} ms on the "
+        f"device, {launch_ms:.4f} ms per launch from Python; plain version "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes:.4g} B at 3.35 TB/s, {flops:.4g} flop) [{card}]")
+    del pool, kc, vc, kg, vg
+    torch.cuda.empty_cache()
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:31",
+            "launches": launches, "max_abs_err": max(errs), "ms": ms,
+            "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": len(errs),
+            "shape": {"B": nseq, "H": H, "KV": KV, "dh": dh, "page": page,
+                      "pages_per_seq": pps, "live_tokens": tokens,
+                      "dtype": "bfloat16"}}
 
 
 def main():
@@ -612,10 +998,12 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import get_model
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.fused_tlb.kernel import fused_tlb_round
     from repro_torch.kernels.fused_tlb.ref import fused_tlb_access_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
     from repro_torch.sim import runner
 
     card = card_line()
@@ -623,7 +1011,7 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("fused_tlb", "flash_attention")
+    names = ("fused_tlb", "flash_attention", "ssd_scan", "paged_attention")
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         list(pool.map(_build.load, names))
     for name in names:
@@ -633,7 +1021,7 @@ def main():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] both sources in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernel against its plain version ----------------------------
     cases = []
@@ -719,6 +1107,22 @@ def main():
                              f"times in 2 prefills of 36 layers")
     match_phase(torch, np, card)
 
+    # ---- 8-10. the Mamba2 serving path and its kernel -------------------
+    ssd = ssd_phase(torch, np, card)
+    n_ssm = get_model(MAMBA_ARCH).n_layers
+    ssd_intra_chunk.launches = 0
+    serve_phase(torch, np, card, MAMBA_ARCH, "mamba2")
+    ssd["launches"] = ssd_intra_chunk.launches
+    if ssd["launches"] != n_ssm * 2:
+        raise AssertionError(f"ssd_intra_chunk launched {ssd['launches']} "
+                             f"times in 2 prefills of {n_ssm} layers")
+    log(f"[mamba2] ssd_intra_chunk launches {ssd['launches']} == {n_ssm} x "
+        f"2 prefills")
+    match_phase(torch, np, card, MAMBA_ARCH, "m-match")
+
+    # ---- 11. the paged KV pool and its kernel ---------------------------
+    paged = paged_phase(torch, np, card)
+
     l2 = timings[0]
     print(json.dumps({"kernels": [{
         "name": "fused_tlb", "route": "cuda",
@@ -728,7 +1132,8 @@ def main():
         "ms": l2["ms"], "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
-        "library_ms": None, "shapes": timings}, flash]}), flush=True)
+        "library_ms": None, "shapes": timings}, flash, ssd, paged]}),
+        flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 """Where the model's serving path spends its time, for the PyTorch port on
 one GPU.
 
-    python3 scripts/torch_serve_profile.py
+    python3 scripts/torch_serve_profile.py [--arch qwen3-4b|mamba2-1.3b]
 
-The serving shape of `chip_smoke.py` phase 6, from its own setup: qwen3-4b
-at full width in bf16, random weights from a seeded generator on the card,
+The serving shape of `chip_smoke.py` phase 6 (qwen3-4b, the default) or
+phase 9 (mamba2-1.3b), from its own setup: the model at full width in
+bf16, random weights from a seeded generator on the card,
 `attention_impl="pallas_flash"`, 4 prompts of 2048 tokens, caches of
 2048 + 64 positions. After a warm-up prefill and decode step, for the
 prefill and for 8 greedy decode steps:
@@ -14,11 +15,13 @@ prefill and for 8 greedy decode steps:
   * a `torch.profiler` trace of the same work: device ms (the sum of
     kernel times; one stream, so kernels do not overlap), kernel
     launches, the device busy share (device ms over the traced wall ms),
-    the flash kernel's launches and device ms, and the kernels with the
-    most device time.
+    the path kernel's launches, device ms and share of the device time
+    (flash attention for qwen3-4b, the SSD intra-chunk kernel for
+    mamba2-1.3b), and the kernels with the most device time.
 
 Prints one JSON line per phase, then the card's name and power limit.
 """
+import argparse
 import json
 import sys
 import time
@@ -31,6 +34,9 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import chip_smoke  # noqa: E402
 
 STEPS = 8                          # decode steps timed, then traced
+# the hand-written kernel on each arch's serving path, by its CUDA name
+PATH_KERNEL = {"qwen3-4b": "flash_fwd_kernel",
+               "mamba2-1.3b": "ssd_intra_kernel"}
 
 
 def trace(torch, fn, n):
@@ -47,12 +53,13 @@ def trace(torch, fn, n):
     return wall, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def summary(phase, wall_ms, traced_ms, kernels, n):
+def summary(phase, wall_ms, traced_ms, kernels, n, path_kernel):
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name[:90]] += e.self_device_time_total / 1e3
     device = sum(by_name.values())
-    flash = [e for e in kernels if "flash_fwd_kernel" in e.name]
+    mine = [e for e in kernels if path_kernel in e.name]
+    mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "phase": phase, "calls": n, "wall_ms_per_call": wall_ms / n,
@@ -60,19 +67,25 @@ def summary(phase, wall_ms, traced_ms, kernels, n):
         "device_ms_per_call": device / n,
         "device_busy_share": device / traced_ms,
         "kernels_per_call": len(kernels) / n,
-        "flash_launches_per_call": len(flash) / n,
-        "flash_device_ms_per_call":
-            sum(e.self_device_time_total for e in flash) / 1e3 / n,
+        "path_kernel": path_kernel,
+        "path_kernel_launches_per_call": len(mine) / n,
+        "path_kernel_device_ms_per_call": mine_ms / n,
+        "path_kernel_device_share": mine_ms / device if device else 0.0,
         "top_kernels_ms_per_call": [[k, v / n] for k, v in top]}
 
 
 def main():
+    parser = argparse.ArgumentParser(
+        description="Profile the port's serving path on one GPU.")
+    parser.add_argument("--arch", default=chip_smoke.SERVE_ARCH,
+                        choices=sorted(PATH_KERNEL))
+    arch = parser.parse_args().arch
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch_serve_profile: no CUDA device is visible")
     card = chip_smoke.card_line()
-    model, cfg, run, params = chip_smoke.model_setup(torch, None)
+    model, cfg, run, params = chip_smoke.model_setup(torch, None, arch)
     tokens = chip_smoke.serve_tokens(torch, np, cfg)
     max_len = chip_smoke.SERVE_S + chip_smoke.SERVE_NEW   # > 2 * STEPS + 1
     state = {}
@@ -98,7 +111,7 @@ def main():
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
             traced, kernels = trace(torch, fn, n)
-            row = summary(phase, wall, traced, kernels, n)
+            row = summary(phase, wall, traced, kernels, n, PATH_KERNEL[arch])
             row.update(arch=cfg.name, batch=chip_smoke.SERVE_B,
                        prompt=chip_smoke.SERVE_S, card=card)
             print(json.dumps(row), flush=True)

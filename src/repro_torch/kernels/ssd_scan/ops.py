@@ -1,0 +1,62 @@
+"""Public SSD ops, dispatched by the tensors' device.
+
+A CPU tensor goes to the plain PyTorch version (`ref.py`); any other
+device goes to the CUDA kernel (`kernel.py`), which launches or raises.
+Nothing falls back from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd_scan import kernel as _kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+
+
+def ssd_intra_chunk(x, dA, Bm, Cm):
+    """x: (B, nc, Q, nh, hd); dA: (B, nc, Q, nh); Bm/Cm: (B, nc, Q, ds),
+    float32. Returns y_intra, S_chunk, decay (see `ref.py`)."""
+    if x.device.type == "cpu":
+        return ssd_intra_chunk_ref(x, dA, Bm, Cm)
+    return _kernel.ssd_intra_chunk(x, dA, Bm, Cm)
+
+
+def chunk_inputs(x, dt, A, B, C, chunk: int):
+    """The kernel's inputs from the scan's: x * dt and dt * A in float32,
+    B and C in float32, each cut into chunks of `chunk` rows and
+    contiguous. Returns xc (b, nc, Q, nh, hd), dAc (b, nc, Q, nh), Bc and
+    Cc (b, nc, Q, ds)."""
+    b, S, nh, hd = x.shape
+    ds, nc = B.shape[-1], S // chunk
+    return ((x * dt[..., None]).float().reshape(b, nc, chunk, nh, hd)
+            .contiguous(),
+            (dt * A[None, None, :]).float().reshape(b, nc, chunk, nh)
+            .contiguous(),
+            B.float().reshape(b, nc, chunk, ds).contiguous(),
+            C.float().reshape(b, nc, chunk, ds).contiguous())
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, h0=None):
+    """Full SSD: y (b, S, nh, hd) and final state (b, nh, hd, ds).
+
+    x: (b, S, nh, hd); dt: (b, S, nh) positive; A: (nh,) negative;
+    B, C: (b, S, ds); h0: the state (b, nh, hd, ds) entering the first
+    chunk, or None for zeros. S must be a multiple of `chunk`, as in the
+    reference (`src/repro/kernels/ssd_scan/ops.py`). The intra-chunk part
+    runs in `ssd_intra_chunk`, the inter-chunk recurrence is a loop over
+    chunks."""
+    b, S, nh, hd = x.shape
+    if S % chunk:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    xc, dAc, Bc, Cc = chunk_inputs(x, dt, A, B, C, chunk)
+    y_intra, s_chunk, decay = ssd_intra_chunk(xc, dAc, Bc, Cc)
+    # the state entering each chunk: h <- h * decay_c + S_c
+    h = torch.zeros_like(s_chunk[:, 0]) if h0 is None else h0.float()
+    enter = []
+    for c in range(s_chunk.shape[1]):
+        enter.append(h)
+        h = h * decay[:, c, :, None, None] + s_chunk[:, c]
+    y_inter = torch.einsum("bnqd,bnqh,bnhpd->bnqhp", Cc,
+                           torch.exp(torch.cumsum(dAc, dim=2)),
+                           torch.stack(enter, dim=1))
+    return (y_intra + y_inter).reshape(b, S, nh, hd), h

@@ -2,8 +2,9 @@
 numpy.
 
 A reference tree fetched to the host (`jax.device_get` of `repro.models`
-params, or of a decode cache dict) is a nested dict of numpy arrays; it
-becomes the port's nested dict of tensors with the same keys, and back.
+params, or of a decode cache dict, SSM state included) is a nested dict
+of numpy arrays; it becomes the port's nested dict of tensors with the
+same keys, and back.
 float32 and integer arrays carry as they are. A JAX bfloat16 array comes
 to numpy as a 2-byte array of an extension dtype named "bfloat16"; its
 bits are read through int16 and viewed as `torch.bfloat16`, so nothing
@@ -26,11 +27,11 @@ from repro_torch.models.params import tree_map
 def tensor_from_numpy(arr, device, dtype: Optional[torch.dtype] = None):
     """One numpy array (float32, int, or JAX's bfloat16) -> a tensor on
     `device`; a floating-point array is cast to `dtype` if given."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.array(arr, order="C")          # a copy; keeps 0-d arrays 0-d
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(arr.copy())
+        t = torch.from_numpy(arr)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

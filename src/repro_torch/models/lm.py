@@ -1,4 +1,4 @@
-"""Model assembly for decoder LMs with dense attention layers.
+"""Model assembly for decoder LMs with attention and Mamba2 (SSM) layers.
 
 The structure is the reference's: an embedding, a loop over parameter
 *blocks* (a block = the smallest repeating layer pattern; the block
@@ -11,19 +11,22 @@ Modes:
   * ``full``   — train / prefill over (B, S); optionally emits KV caches.
   * ``decode`` — one token per sequence against the caches.
 
-Caches are dicts with the reference's keys: ``cache_len`` (B,) int32 and
-``k``/``v`` of shape (R, n_attn, B, S, KV, dh). `forward_decode` writes
-the new token's k/v into the caches IN PLACE and returns the same
-tensors with a new ``cache_len``.
+Caches are dicts with the reference's keys: ``cache_len`` (B,) int32;
+``k``/``v`` of shape (R, n_attn, B, S, KV, dh) when there are attention
+layers; ``ssm_h`` (R, n_ssm, B, nh, hd, ds) float32 and ``ssm_conv``
+(R, n_ssm, B, W-1, conv_dim) when there are SSM layers.
+`forward_decode` writes the new token's k/v and the new SSM state into
+the caches IN PLACE and returns the same tensors with a new
+``cache_len``.
 
-Only dense attention layers are ported. SSM and hybrid layers, MoE FFNs,
-the encoder-decoder (whisper) and patch-embedding (vlm) inputs, and
+Dense attention and Mamba2 layers are ported. MoE FFNs, the
+encoder-decoder (whisper) and patch-embedding (vlm) inputs, and
 int8-quantized weights raise `NotImplementedError` (ROADMAP Queue 1,
-item 10).
+item 10); so does jamba, whose hybrid layers carry MoE FFNs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -31,14 +34,13 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
-from repro_torch.models.params import stack_params, tree_map
+from repro_torch.models import mamba2 as m2
+from repro_torch.models.params import TensorSpec, stack_params, tree_map
 
 _UNPORTED = "is not ported yet (ROADMAP Queue 1, item 10)"
 
 
 def _check_supported(cfg: ModelConfig, run: RunConfig = None):
-    if any(k != "attn" for k in cfg.layer_kinds()):
-        raise NotImplementedError(f"{cfg.name}: ssm layers {_UNPORTED}")
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: moe layers {_UNPORTED}")
     if cfg.is_enc_dec:
@@ -70,8 +72,11 @@ def block_pattern(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...],
 def _layer_param_tree(cfg: ModelConfig, kind: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": L.rmsnorm_params(d)}
-    p["attn"] = attn_mod.attn_params(
-        d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+    if kind == "attn":
+        p["attn"] = attn_mod.attn_params(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+    else:
+        p["ssm"] = m2.mamba2_params(cfg)
     if cfg.d_ff > 0:
         p["norm2"] = L.rmsnorm_params(d)
         p["mlp"] = L.mlp_params(d, cfg.d_ff)
@@ -100,23 +105,28 @@ def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # Cache specs (decode)
 # ---------------------------------------------------------------------------
 
-class TensorSpec(NamedTuple):
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
-
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     """Shape/dtype tree of the decode cache. SWA archs get a ring buffer
-    bounded by the window."""
+    bounded by the window; SSM layers get O(1) state."""
     _check_supported(cfg)
     P, kinds, _ = block_pattern(cfg)
     R = cfg.n_layers // P
-    n_attn = P
+    n_attn = sum(1 for k in kinds if k == "attn")
+    n_ssm = P - n_attn
     S = max_len if cfg.sliding_window is None \
         else min(max_len, cfg.sliding_window)
-    kv = TensorSpec((R, n_attn, batch, S, cfg.n_kv_heads, cfg.head_dim),
-                    torch.bfloat16)
-    return {"cache_len": TensorSpec((batch,), torch.int32), "k": kv, "v": kv}
+    out: Dict[str, Any] = {"cache_len": TensorSpec((batch,), torch.int32)}
+    if n_attn:
+        kv = TensorSpec((R, n_attn, batch, S, cfg.n_kv_heads, cfg.head_dim),
+                        torch.bfloat16)
+        out["k"] = kv
+        out["v"] = kv
+    if n_ssm:
+        st = m2.ssm_state_specs(cfg, batch)
+        out["ssm_h"] = TensorSpec((R, n_ssm) + st.h.shape, st.h.dtype)
+        out["ssm_conv"] = TensorSpec((R, n_ssm) + st.conv.shape,
+                                     st.conv.dtype)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -182,43 +192,68 @@ def _ffn(cfg, run, lp, x):
 def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
              mode: str = "full", caches=None, build_cache=False):
     """x: (B,S,d) embedded inputs. Returns (hidden, new_caches, aux_losses).
-    In decode mode the k/v caches are updated in place."""
+    In decode mode the k/v caches and the SSM state are updated in place
+    (the state is cast to the cache's dtype)."""
     _check_supported(cfg, run)
-    P, _, _ = block_pattern(cfg)
+    P, kinds, _ = block_pattern(cfg)
     R = cfg.n_layers // P
+    attn_ix = [j for j in range(P) if kinds[j] == "attn"]
+    ssm_ix = [j for j in range(P) if kinds[j] == "ssm"]
     blocks = params["blocks"]
     cache_len = caches["cache_len"] if caches else None
-    kv_out = []
+    kv_out, ssm_out = [], []
     for r in range(R):
         bp = tree_map(lambda a, _r=r: a[_r], blocks) if R > 1 else blocks
-        block_kv = []
+        block_kv, block_ssm = [], []
         for j in range(P):
             lp = bp[f"layer{j}"]
             h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-            if mode == "decode":
-                o = _self_attention_decode(
-                    cfg, run, lp, h, caches["k"][r, j], caches["v"][r, j],
-                    cache_len)
+            if kinds[j] == "attn":
+                a = attn_ix.index(j)
+                if mode == "decode":
+                    o = _self_attention_decode(
+                        cfg, run, lp, h, caches["k"][r, a],
+                        caches["v"][r, a], cache_len)
+                else:
+                    o, kv = _self_attention_full(
+                        cfg, run, lp, h, positions, build_cache)
+                    if build_cache:
+                        block_kv.append(kv)
             else:
-                o, kv = _self_attention_full(
-                    cfg, run, lp, h, positions, build_cache)
-                if build_cache:
-                    block_kv.append(kv)
+                m = ssm_ix.index(j)
+                if mode == "decode":
+                    st = m2.SSMState(h=caches["ssm_h"][r, m],
+                                     conv=caches["ssm_conv"][r, m])
+                    o, new = m2.mamba2_decode(lp["ssm"], cfg, h, st)
+                    st.h.copy_(new.h)
+                    st.conv.copy_(new.conv)
+                else:
+                    o, st = m2.mamba2_forward(lp["ssm"], cfg, h)
+                    if build_cache:
+                        block_ssm.append(st)
             x = x + o
             if "norm2" in lp:
                 h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
                 x = x + _ffn(cfg, run, lp, h)
         if block_kv:
             kv_out.append(block_kv)
+        if block_ssm:
+            ssm_out.append(block_ssm)
 
     if mode == "decode":
         new_caches = dict(caches, cache_len=cache_len + 1)
     elif build_cache:
-        new_caches = {
-            "k": torch.stack([torch.stack([k for k, _ in b]) for b in kv_out]),
-            "v": torch.stack([torch.stack([v for _, v in b]) for b in kv_out]),
-            "cache_len": torch.full((x.shape[0],), x.shape[1],
-                                    dtype=torch.int32, device=x.device)}
+        def stacked(blocks_out, field):
+            return torch.stack([torch.stack([field(e) for e in b])
+                                for b in blocks_out])
+        new_caches = {"cache_len": torch.full(
+            (x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)}
+        if kv_out:
+            new_caches["k"] = stacked(kv_out, lambda kv: kv[0])
+            new_caches["v"] = stacked(kv_out, lambda kv: kv[1])
+        if ssm_out:
+            new_caches["ssm_h"] = stacked(ssm_out, lambda st: st.h)
+            new_caches["ssm_conv"] = stacked(ssm_out, lambda st: st.conv)
     else:
         new_caches = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -263,7 +298,8 @@ def forward_prefill(cfg, run, params, batch, max_len):
 
 
 def _pad_prefill_caches(cfg, caches, max_len):
-    """Grow prefill KV to the decode cache capacity (right-padded)."""
+    """Grow prefill KV to the decode cache capacity (right-padded); SSM
+    state stays as it is."""
     out = dict(caches)
     for key in ("k", "v"):
         if key in caches:
@@ -281,8 +317,8 @@ def _pad_prefill_caches(cfg, caches, max_len):
 
 def forward_decode(cfg, run, params, token_batch, caches):
     """token_batch: {'tokens': (B,1)}; returns (logits (B,1,V), caches).
-    The caches' k/v are updated in place; the returned dict holds the same
-    k/v tensors and cache_len + 1."""
+    The caches' k/v and SSM state are updated in place; the returned dict
+    holds the same tensors and cache_len + 1."""
     x = embed_inputs(cfg, params, token_batch)
     h, new_caches, _ = backbone(cfg, run, params, x, None, mode="decode",
                                 caches=caches)

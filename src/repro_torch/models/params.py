@@ -8,7 +8,7 @@ spec tree into real tensors on a device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,12 @@ class Param:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} "
                              "differ in rank")
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor to be made (caches, SSM state)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def tree_map(fn: Callable[..., Any], tree, *rest):

@@ -259,7 +259,9 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("arch,run_kw", [
-    ("mixtral-8x22b", {}), ("mamba2-1.3b", {}), ("whisper-base", {}),
+    ("mixtral-8x22b", {}),
+    ("mamba2-1.3b", {"quantize_weights": True}),   # ssm layers are ported
+    ("whisper-base", {}),
     ("phi-3-vision-4.2b", {}), ("jamba-1.5-large-398b", {}),
     ("qwen3-4b", {"quantize_weights": True})])
 def test_unported_kinds_raise(arch, run_kw):
@@ -268,9 +270,8 @@ def test_unported_kinds_raise(arch, run_kw):
                      **run_kw)
     with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
         if run_kw:
-            dense = pconfigs.reduced_model(pconfigs.ARCHS["qwen3-4b"])
-            plm.backbone(dense, run, {"blocks": {}},
-                         torch.zeros(1, 8, dense.d_model), None)
+            plm.backbone(cfg, run, {"blocks": {}},
+                         torch.zeros(1, 8, cfg.d_model), None)
         else:
             pM.param_specs(cfg)
 

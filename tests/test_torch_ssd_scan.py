@@ -1,0 +1,107 @@
+"""Parity of the port's SSD ops against the reference (CPU).
+
+On the CPU, `repro_torch.kernels.ssd_scan.ops` runs the kernel's plain
+version (`ref.py`). It is held against the reference's Pallas kernel in
+interpret mode (`ssd_intra_chunk` and the public `ssd_scan`) and against
+the O(S) recurrence `ssd_recurrence_ref` of both packages, on the
+reference kernel test's 3 sweep cases and two ragged chunks (Q = 10 and
+Q = 248, not multiples of the CUDA kernel's 64-row tiles), at the
+reference's atol = rtol = 1e-4 (float32; measured errors ~1e-6). The CUDA
+kernel runs only on the card (`chip_smoke.py` phase 8 holds it against
+the same plain version).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd_scan.kernel import \
+    ssd_intra_chunk as jax_intra  # noqa: E402
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_scan  # noqa: E402
+from repro.kernels.ssd_scan.ref import \
+    ssd_recurrence_ref as jax_recurrence  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as pt_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as pt_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as pt_ref  # noqa: E402
+
+TOL = 1e-4
+CASES = [(64, 4, 16, 16, 16), (128, 8, 32, 16, 32), (96, 2, 64, 32, 32),
+         (40, 2, 16, 16, 10),      # ragged: Q = 10
+         (496, 2, 16, 16, 248)]    # ragged: Q = 248, four 64-row tiles
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(S, nh, hd, ds):
+    """The reference test's inputs (tests/test_kernels.py)."""
+    rng = np.random.RandomState(S + nh)
+    x = (rng.randn(2, S, nh, hd) * .5).astype(np.float32)
+    dt = (np.abs(rng.randn(2, S, nh)) * .1 + .02).astype(np.float32)
+    A = (-np.abs(rng.randn(nh)) * .5 - .1).astype(np.float32)
+    B = (rng.randn(2, S, ds) * .5).astype(np.float32)
+    C = (rng.randn(2, S, ds) * .5).astype(np.float32)
+    return x, dt, A, B, C
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES)
+def test_ssd_scan_matches_reference(S, nh, hd, ds, chunk):
+    arrays = _inputs(S, nh, hd, ds)
+    y, h = pt_ops.ssd_scan(*map(torch.from_numpy, arrays), chunk=chunk)
+    assert y.shape == (2, S, nh, hd) and h.shape == (2, nh, hd, ds)
+    jy, jh = jax_scan(*map(jnp.asarray, arrays), chunk=chunk, interpret=True)
+    ry, rh = jax_recurrence(*map(jnp.asarray, arrays))
+    for want_y, want_h in ((jy, jh), (ry, rh)):
+        _close(y, want_y)
+        _close(h, want_h)
+
+
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES)
+def test_ssd_intra_chunk_matches_reference_kernel(S, nh, hd, ds, chunk):
+    x, dt, A, B, C = _inputs(S, nh, hd, ds)
+    nc = S // chunk
+    xc = (x * dt[..., None]).reshape(2, nc, chunk, nh, hd)
+    dAc = (dt * A).reshape(2, nc, chunk, nh)
+    Bc, Cc = (a.reshape(2, nc, chunk, ds) for a in (B, C))
+    got = pt_ops.ssd_intra_chunk(*map(torch.from_numpy, (xc, dAc, Bc, Cc)))
+    want = jax_intra(*map(jnp.asarray, (xc, dAc, Bc, Cc)),
+                     head_tile=min(8, nh), interpret=True)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        _close(g, w)
+
+
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES[:3])
+def test_recurrence_ref_matches_reference(S, nh, hd, ds, chunk):
+    arrays = _inputs(S, nh, hd, ds)
+    y, h = pt_ref.ssd_recurrence_ref(*map(torch.from_numpy, arrays))
+    jy, jh = jax_recurrence(*map(jnp.asarray, arrays))
+    _close(y, jy)
+    _close(h, jh)
+
+
+def test_shape_contract():
+    """S must be a multiple of the chunk, as the reference asserts; the
+    kernel's wrapper refuses CPU tensors (no fallback) and widths past its
+    tiles."""
+    x, dt, A, B, C = map(torch.from_numpy, _inputs(64, 4, 16, 16))
+    with pytest.raises(ValueError, match="not a multiple"):
+        pt_ops.ssd_scan(x, dt, A, B, C, chunk=24)
+    xc = torch.zeros(1, 1, 8, 2, 16)
+    dAc = torch.zeros(1, 1, 8, 2)
+    Bc = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(ValueError, match="current CUDA device"):
+        pt_kernel.ssd_intra_chunk(xc, dAc, Bc, Bc)
+    assert pt_kernel.ssd_intra_chunk.launches == 0
