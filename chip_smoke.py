@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
   1. build  -- compile `src/repro_torch/csrc/fused_tlb.cu`,
-               `flash_attention.cu`, `ssd_scan.cu` and
-               `paged_attention.cu` for sm_90a, one nvcc each, in parallel;
+               `flash_attention_sm90.cu`, `flash_attention.cu`,
+               `ssd_scan.cu` and `paged_attention.cu` for sm_90a, one nvcc
+               each, in parallel;
   2. kernel -- the `fused_tlb` kernel against its plain PyTorch version on
                the card, element for element (exact: integer outputs), at
                both main-path shapes, the reference kernel test's shapes
@@ -20,28 +21,37 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                run_mix == run_pair and idle partner == run_solo;
   4. timed  -- simulated cycles per second of the 9000-cycle mask run
                (the `mask@9000` golden of phase 3);
-  5. flash  -- the `flash_attention` kernel against its plain PyTorch
-               version on the card: the reference kernel test's 18 cases
-               (atol = rtol = 2e-2 in bf16, 2e-5 in fp32), phase 7's
-               ragged 496-token prefill shape, and the serving
-               shape, qwen3-4b prefill (B=4, S=2048, 32 heads, 8 KV heads,
-               dh 128, causal, bf16, in the model's strided layout), the
-               last two in bf16 held to the rounding bound of
-               `flash_compare`; at the serving
-               shape the kernel's device time (CUDA events), its time per
+  5. flash  -- the `flash_attention` kernels against their plain PyTorch
+               version on the card, each check on the route its dtype
+               selects (bf16: the tensor-core kernel
+               `flash_attention_sm90.cu`; fp32: the SIMT kernel
+               `flash_attention.cu`; the route counts are checked): the
+               reference kernel test's 18 cases (atol = rtol = 2e-2 in
+               bf16, 2e-5 in fp32), phase 7's ragged 496-token prefill
+               shape, 9 bf16 edge cases of the tensor-core kernel
+               (`FLASH_EDGES`: S = 1000, 129, 77 and 1, windows across
+               its 128-row tiles, non-causal, G of 1, 4 and 8, dh 32, 64
+               and 128), and the serving shape, qwen3-4b prefill (B=4,
+               S=2048, 32 heads, 8 KV heads, dh 128, causal, bf16, in the
+               model's strided layout), the bf16 checks past the sweep
+               held to the rounding bound of `flash_compare`; at the
+               serving shape the tensor-core kernel's device time (CUDA
+               events), TFLOP/s and share of its bound, its time per
                launch from Python, the plain version's time, and
-               `scaled_dot_product_attention`'s time as a yardstick;
+               `scaled_dot_product_attention`'s time as a yardstick; the
+               same times of the SIMT kernel at phase 7's fp32 shape;
   6. serve  -- the model's serving path at full width: qwen3-4b (36
                layers) in bf16 with random weights from a seeded generator
                on the card, `attention_impl="pallas_flash"`; 4 prompts of
                2048 tokens through `forward_prefill` (max_len 2112), twice
                (cold, then timed), then 64 greedy `forward_decode` steps;
                flash launches == 36 per prefill, finite logits, cache_len
-               2112 at the end;
+               2112 at the end; every flash launch on the wgmma route;
   7. match  -- the same model in fp32 (TF32 off for matmul and cuDNN):
                `forward_prefill` of 2 x 496 tokens plus 16 `forward_decode`
                steps against `forward_train` over the same 512 tokens
-               (logits within 2e-3 after prefill, 5e-3 in decode);
+               (logits within 2e-3 after prefill, 5e-3 in decode); the
+               72 flash launches (36 in each) all on the simt route;
   8. ssd    -- the `ssd_scan` kernel (`ssd_intra_chunk`) against its plain
                version on the card: the reference test's 3 cases and a
                ragged chunk of 248 rows at atol = rtol = 1e-4, with
@@ -186,6 +196,16 @@ FLASH_SHAPES = [(128, 4, 4, 64, 64, 64), (256, 8, 2, 64, 64, 128),
                 (128, 4, 1, 128, 32, 64)]
 FLASH_MASKS = [(True, None), (False, None), (True, 96)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol = rtol
+# the tensor-core kernel's edges, bf16 under the rounding bound: (S, H, KV,
+# dh, causal, window); lengths off its 128-row tiles, windows that cross
+# them, non-causal rows, G = H / KV of 1, 4 and 8, every head dim
+FLASH_EDGES = [(1000, 4, 4, 128, True, None), (1000, 8, 2, 64, True, 300),
+               (1000, 8, 1, 32, False, None), (1000, 16, 2, 128, False, 300),
+               (1000, 4, 1, 32, True, 300), (1000, 8, 8, 64, False, None),
+               (77, 4, 2, 128, True, 50), (129, 2, 2, 64, False, None),
+               (1, 2, 1, 64, True, None)]
+FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "simt": "src/repro_torch/csrc/flash_attention.cu"}
 # the serving path's flash call: qwen3-4b prefill of 4 x 2048 tokens
 SERVE_ARCH = "qwen3-4b"
 MAMBA_ARCH = "mamba2-1.3b"
@@ -476,43 +496,32 @@ def time_host(torch, fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def flash_phase(torch, np, kernel, card):
-    """Phase 5: the flash kernel against its plain version, and its times
-    at the serving shape. Returns the kernel's entry of the JSON line."""
+def routed(kernel, kind, n, what):
+    """Raise unless the last `n` launches of `kernel` all took route
+    `kind`; the caller zeroed the counts before them."""
+    counts = kernel.route_launches
+    want = {name: (n if name == kind else 0) for name in counts}
+    if kernel.launches != n or counts != want:
+        raise AssertionError(f"flash_attention {what}: {kernel.launches} "
+                             f"launches, by route {counts}; want {want}")
+
+
+def zero_counts(kernel):
+    kernel.launches = 0
+    for name in kernel.route_launches:
+        kernel.route_launches[name] = 0
+
+
+def flash_timing(torch, np, kernel, q, k, v, flop_rate):
+    """The kernel's device time (CUDA events), its time per launch from
+    Python, the plain version's time and `scaled_dot_product_attention`'s
+    on causal q, k, v, with the bound: the larger of the visible pairs'
+    flop over `flop_rate` and q, k, v, o's bytes over the HBM rate."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
-
-    errs = []
-    for dtype in ("float32", "bfloat16"):
-        for S, H, KV, dh, bq, bk in FLASH_SHAPES:
-            q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + H)
-            for causal, window in FLASH_MASKS:
-                errs.append(flash_compare(
-                    torch, kernel, attention_ref, q, k, v, causal, window,
-                    FLASH_TOL[dtype], block_q=bq, block_k=bk)[0])
-    n_sweep = len(errs)
-    log(f"[flash] kernel == plain version on the reference's {n_sweep} "
-        f"sweep cases (max |err| {max(errs):.3g}) [{card}]")
-    for dtype in ("float32", "bfloat16"):     # phase 7's ragged prefill
-        q, k, v = flash_inputs(torch, np, MATCH_PROMPT, 32, 8, 128, dtype, 1,
-                               B=MATCH_B)
-        bf16 = dtype == "bfloat16"
-        err, share, typical = flash_compare(
-            torch, kernel, attention_ref, q, k, v, True, None,
-            FLASH_TOL[dtype], bf16)
-        errs.append(err)
-        log(f"[flash] B={MATCH_B} S={MATCH_PROMPT} causal {dtype}: max |err| "
-            f"{err:.3g}, {share:.3g}x "
-            f"{'the rounding bound' if bf16 else 'tol'}; median |o| "
-            f"{typical:.3g}")
-
-    B, S, H, KV, dh = SERVE_B, SERVE_S, 32, 8, 128
-    q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", 0, B=B)
-    err, share, typical = flash_compare(
-        torch, kernel, attention_ref, q, k, v, True, None,
-        FLASH_TOL["bfloat16"], rounding=True)
-    errs.append(err)
+    B, H, S, dh = q.shape
+    KV = k.shape[1]
     run = lambda: kernel(q, k, v, causal=True)           # noqa: E731
     ms = time_events(torch, run, 20)
     launch_ms = time_host(torch, run, 10)
@@ -527,30 +536,119 @@ def flash_phase(torch, np, kernel, card):
             qc, kr, vr, is_causal=True)
     library_ms = time_events(torch, lib, 20)
     flops = 4 * dh * B * H * visible_pairs(np, S, S, True, None)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
-    by_ops = flops / BF16_TENSOR_FLOPS * 1e3
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    by_ops = flops / flop_rate * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes \
         else (by_bytes, "bytes")
-    log(f"[flash] B={B} S={S} H={H} KV={KV} dh={dh} causal bf16: max |err| "
+    return dict(ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                flops=flops, nbytes=nbytes, tflops=flops / ms / 1e9,
+                bound_share=bound_ms / ms)
+
+
+def flash_phase(torch, np, kernel, card):
+    """Phase 5: the flash kernels against their plain version, each on the
+    route its dtype selects, and their times: the tensor-core kernel at the
+    serving shape, the SIMT kernel at phase 7's fp32 shape. Returns the two
+    entries of the JSON line (launches filled in by phases 6 and 7)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    errs = {"float32": [], "bfloat16": []}
+    for dtype, kind in (("float32", "simt"), ("bfloat16", "wgmma")):
+        zero_counts(kernel)
+        for S, H, KV, dh, bq, bk in FLASH_SHAPES:
+            q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + H)
+            for causal, window in FLASH_MASKS:
+                errs[dtype].append(flash_compare(
+                    torch, kernel, attention_ref, q, k, v, causal, window,
+                    FLASH_TOL[dtype], block_q=bq, block_k=bk)[0])
+        routed(kernel, kind, len(FLASH_SHAPES) * len(FLASH_MASKS),
+               f"{dtype} sweep")
+    log(f"[flash] kernel == plain version on the reference's "
+        f"{sum(map(len, errs.values()))} sweep cases (max |err| "
+        f"{max(errs['float32']):.3g} fp32 on the simt route, "
+        f"{max(errs['bfloat16']):.3g} bf16 on the wgmma route) [{card}]")
+    for dtype, kind in (("float32", "simt"), ("bfloat16", "wgmma")):
+        zero_counts(kernel)                   # phase 7's ragged prefill
+        q, k, v = flash_inputs(torch, np, MATCH_PROMPT, 32, 8, 128, dtype, 1,
+                               B=MATCH_B)
+        bf16 = dtype == "bfloat16"
+        err, share, typical = flash_compare(
+            torch, kernel, attention_ref, q, k, v, True, None,
+            FLASH_TOL[dtype], bf16)
+        routed(kernel, kind, 1, f"B={MATCH_B} S={MATCH_PROMPT} {dtype}")
+        errs[dtype].append(err)
+        log(f"[flash] B={MATCH_B} S={MATCH_PROMPT} causal {dtype} ({kind}): "
+            f"max |err| {err:.3g}, {share:.3g}x "
+            f"{'the rounding bound' if bf16 else 'tol'}; median |o| "
+            f"{typical:.3g}")
+    zero_counts(kernel)
+    shares = []
+    for S, H, KV, dh, causal, window in FLASH_EDGES:
+        q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", S + dh)
+        err, share, _ = flash_compare(
+            torch, kernel, attention_ref, q, k, v, causal, window, None,
+            rounding=True, block_q=S, block_k=S)
+        errs["bfloat16"].append(err)
+        shares.append(share)
+    routed(kernel, "wgmma", len(FLASH_EDGES), "bf16 edge cases")
+    log(f"[flash] wgmma kernel == plain version on {len(FLASH_EDGES)} bf16 "
+        f"edge cases (ragged S, windows across tile edges, non-causal, G 1 "
+        f"to 8, dh 32/64/128) within the rounding bound (largest share "
+        f"{max(shares):.3g}) [{card}]")
+
+    B, S, H, KV, dh = SERVE_B, SERVE_S, 32, 8, 128
+    q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", 0, B=B)
+    zero_counts(kernel)
+    err, share, typical = flash_compare(
+        torch, kernel, attention_ref, q, k, v, True, None,
+        FLASH_TOL["bfloat16"], rounding=True)
+    routed(kernel, "wgmma", 1, "serving shape")
+    errs["bfloat16"].append(err)
+    tc = flash_timing(torch, np, kernel, q, k, v, BF16_TENSOR_FLOPS)
+    log(f"[flash] B={B} S={S} H={H} KV={KV} dh={dh} causal bf16 (wgmma "
+        f"route, {FLASH_SOURCES['wgmma']}): max |err| "
         f"{err:.3g}, {share:.3g}x the rounding bound; median |o| "
         f"{typical:.3g}; kernel "
-        f"{ms:.3f} ms on the device, {launch_ms:.3f} ms per launch from "
-        f"Python; plain version {plain_ms:.3f} ms; "
-        f"scaled_dot_product_attention {library_ms:.3f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B)"
-        f" [{card}]")
-    del q, k, v, qc, kc, vc
+        f"{tc['ms']:.4f} ms on the device ({tc['tflops']:.1f} TFLOP/s, "
+        f"{tc['bound_share']:.3f} of the bound), {tc['launch_ms']:.4f} ms "
+        f"per launch from Python; plain version {tc['plain_ms']:.3f} ms; "
+        f"scaled_dot_product_attention {tc['library_ms']:.4f} ms; bound "
+        f"{tc['bound_ms']:.4f} ms by {tc['bound_by']} ({tc['flops']:.4g} "
+        f"flop, {tc['nbytes']:.4g} B) [{card}]")
+    del q, k, v
+    q, k, v = flash_inputs(torch, np, MATCH_PROMPT, 32, 8, 128, "float32", 1,
+                           B=MATCH_B)
+    fp = flash_timing(torch, np, kernel, q, k, v, CUDA_CORE_OPS_PER_S)
+    log(f"[flash] B={MATCH_B} S={MATCH_PROMPT} H=32 KV=8 dh=128 causal fp32 "
+        f"(simt route, {FLASH_SOURCES['simt']}): kernel {fp['ms']:.4f} ms "
+        f"on the device ({fp['tflops']:.2f} TFLOP/s, "
+        f"{fp['bound_share']:.3f} of the bound), {fp['launch_ms']:.4f} ms "
+        f"per launch from Python; plain version {fp['plain_ms']:.3f} ms; "
+        f"scaled_dot_product_attention {fp['library_ms']:.4f} ms; bound "
+        f"{fp['bound_ms']:.4f} ms by {fp['bound_by']} ({fp['flops']:.4g} "
+        f"flop at the CUDA cores' fp32 rate, {fp['nbytes']:.4g} B) [{card}]")
+    del q, k, v
     torch.cuda.empty_cache()
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+    entries = []
+    for name, kind, dtype, t, shape in (
+            ("flash_attention", "wgmma", "bfloat16", tc,
+             {"B": B, "S": S, "H": H, "KV": KV, "dh": dh}),
+            ("flash_attention_fp32", "simt", "float32", fp,
+             {"B": MATCH_B, "S": MATCH_PROMPT, "H": 32, "KV": 8, "dh": 128})):
+        entries.append({
+            "name": name, "route": "cuda", "kernel": kind,
+            "source": FLASH_SOURCES[kind],
             "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
-            "launches": None, "max_abs_err": max(errs), "ms": ms,
-            "launch_ms": launch_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "cases": len(errs),
-            "shape": {"B": B, "S": S, "H": H, "KV": KV, "dh": dh,
-                      "dtype": "bfloat16", "causal": True}}
+            "launches": None, "max_abs_err": max(errs[dtype]),
+            "ms": t["ms"], "launch_ms": t["launch_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "tflops": t["tflops"], "bound_share": t["bound_share"],
+            "cases": len(errs[dtype]),
+            "shape": dict(shape, dtype=dtype, causal=True)})
+    return entries
 
 
 def model_setup(torch, dtype, arch=SERVE_ARCH):
@@ -1011,7 +1109,8 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("fused_tlb", "flash_attention", "ssd_scan", "paged_attention")
+    names = ("fused_tlb", "flash_attention_sm90", "flash_attention",
+             "ssd_scan", "paged_attention")
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         list(pool.map(_build.load, names))
     for name in names:
@@ -1098,14 +1197,22 @@ def main():
         f"{9000 / dt:.1f} simulated cycles/s [{card}]")
 
     # ---- 5-7. the model's serving path and its kernel -------------------
-    flash = flash_phase(torch, np, flash_attention_bhsd, card)
-    flash_attention_bhsd.launches = 0
+    flash, flash_fp32 = flash_phase(torch, np, flash_attention_bhsd, card)
+    n_attn = get_model(SERVE_ARCH).n_layers
+    zero_counts(flash_attention_bhsd)
     serve_phase(torch, np, card)
-    flash["launches"] = flash_attention_bhsd.launches
-    if flash["launches"] != 36 * 2:
-        raise AssertionError(f"flash_attention launched {flash['launches']} "
-                             f"times in 2 prefills of 36 layers")
+    flash["launches"] = flash_attention_bhsd.route_launches["wgmma"]
+    routed(flash_attention_bhsd, "wgmma", n_attn * 2,
+           f"2 bf16 prefills of {n_attn} layers")
+    log(f"[serve] flash launches {flash['launches']} == {n_attn} x 2 "
+        f"prefills, all on the wgmma route")
+    zero_counts(flash_attention_bhsd)
     match_phase(torch, np, card)
+    flash_fp32["launches"] = flash_attention_bhsd.route_launches["simt"]
+    routed(flash_attention_bhsd, "simt", n_attn * 2,
+           f"fp32 forward_train + forward_prefill of {n_attn} layers")
+    log(f"[match] flash launches {flash_fp32['launches']} == {n_attn} x 2 "
+        f"(forward_train, forward_prefill), all on the simt route")
 
     # ---- 8-10. the Mamba2 serving path and its kernel -------------------
     ssd = ssd_phase(torch, np, card)
@@ -1132,7 +1239,8 @@ def main():
         "ms": l2["ms"], "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
-        "library_ms": None, "shapes": timings}, flash, ssd, paged]}),
+        "library_ms": None, "shapes": timings}, flash, flash_fp32, ssd,
+        paged]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,8 @@ prefill and for 8 greedy decode steps:
     kernel times; one stream, so kernels do not overlap), kernel
     launches, the device busy share (device ms over the traced wall ms),
     the path kernel's launches, device ms and share of the device time
-    (flash attention for qwen3-4b, the SSD intra-chunk kernel for
-    mamba2-1.3b), and the kernels with the most device time.
+    (the tensor-core flash attention kernel for qwen3-4b, the SSD
+    intra-chunk kernel for mamba2-1.3b), and the kernels with the most device time.
 
 Prints one JSON line per phase, then the card's name and power limit.
 """
@@ -34,8 +34,9 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import chip_smoke  # noqa: E402
 
 STEPS = 8                          # decode steps timed, then traced
-# the hand-written kernel on each arch's serving path, by its CUDA name
-PATH_KERNEL = {"qwen3-4b": "flash_fwd_kernel",
+# the hand-written kernel on each arch's bf16 serving path, by its CUDA
+# name: the tensor-core flash kernel, the SSD intra-chunk kernel
+PATH_KERNEL = {"qwen3-4b": "flash_wgmma_kernel",
                "mamba2-1.3b": "ssd_intra_kernel"}
 
 

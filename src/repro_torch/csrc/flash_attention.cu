@@ -1,40 +1,38 @@
-// Forward flash attention (causal or bidirectional, optional sliding
-// window, grouped-query heads), for Hopper (sm_90a).
+// Forward flash attention in float32 (causal or bidirectional, optional
+// sliding window, grouped-query heads), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `src/repro/kernels/flash_attention/kernel.py::_kernel`
-// (wrapper `flash_attention_bhsd`). The model calls it once per attention
-// layer on its full-sequence path (`models/lm.py::_self_attention_full`,
-// so in `forward_prefill` and `forward_train`) when
-// `RunConfig.attention_impl == "pallas_flash"`.
+// (wrapper `flash_attention_bhsd`) for float32 inputs; bfloat16 inputs go
+// to the tensor-core kernel of `flash_attention_sm90.cu`. Its float32 FMAs
+// keep the reference's 2e-5 tolerance, which TF32 tensor cores would miss.
+// The model calls it once per attention layer on its full-sequence path
+// (`models/lm.py::_self_attention_full`, so in `forward_prefill` and
+// `forward_train`) when `RunConfig.attention_impl == "pallas_flash"`.
 //
 // What it computes, exactly as the TPU kernel does: for query head h (KV
 // head h / G), an online softmax over key tiles with running (m, l, acc)
 // in float32; s = (q . k) * scale in float32; masked scores are the FINITE
 // value -1e30 (a row whose first visited tile is fully masked takes p = 1
 // there, and the next tile's correction exp(-1e30 - m) = 0 wipes it, where
-// -inf would give NaN); p is rounded to v's dtype before the p.v product
-// while l sums the unrounded p; the output is acc / max(l, 1e-30). Tiles
-// that causality or the window masks completely are skipped. Positions
-// count from 0 in both q and k.
+// -inf would give NaN); p stays float32, as v is; the output is
+// acc / max(l, 1e-30). Tiles that causality or the window masks completely
+// are skipped. Positions count from 0 in both q and k.
 //
-// What bounds it: at the serving shape (qwen3-4b prefill, 4 x 2048 tokens,
-// 32 heads of 128) the two products need ~1.4e11 flop against ~170 MB of
-// q/k/v/o, far above the card's ~295 flop/byte ridge in bf16, so the
-// tensor cores' rate bounds it. This first design does not reach them: it
-// is a plain SIMT kernel, chosen to be right first. One thread block of
+// What bounds it: operations at the CUDA cores' float32 rate (67 TFLOP/s):
+// at the fp32 match shape (qwen3-4b, 2 x 496 tokens, 32 heads of 128) the
+// two products need ~2.0e10 flop against ~33 MB of q/k/v/o. It is a plain
+// SIMT kernel, chosen to be right first. One thread block of
 // 256 threads per (q tile of 64 rows, head, batch); q, k and v tiles are
-// staged in shared memory as float32 (k/q rows padded by one word so the
+// staged in shared memory (k/q rows padded by one word so the
 // column walk of q.k^T is free of bank conflicts); each thread keeps a 4 x 4
 // block of the score tile and a 4 x (dh/16) block of the accumulator in
-// registers. One warp per 8 rows does the softmax with shuffles. wgmma,
-// TMA and a pipelined ring of tiles are the way to the tensor-core bound.
+// registers. One warp per 8 rows does the softmax with shuffles.
 //
 // Layout: q, k, v, o are read and written through (batch, head, position)
 // strides with a contiguous head dimension, so the model's (B, S, H, dh)
 // tensors are used in place. Ragged edges (lengths not a multiple of 64)
 // are handled: q rows past Sq are not stored, keys past Sk get p = 0.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -49,20 +47,6 @@ struct Strides {
   long long b, h, s;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
 template <int DH>
 constexpr size_t smem_floats() {
   return size_t(BQ) * (DH + 1)      // q tile, padded
@@ -72,10 +56,11 @@ constexpr size_t smem_floats() {
          + 3 * size_t(BQ);          // m, l, correction
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int G, int Sq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int G,
+                 int Sq,
                  int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                  int causal, int has_window, int window, float scale) {
   constexpr int QP = DH + 1;
@@ -96,14 +81,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_start = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / G;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  float* ob = o + b * os.b + h * os.h;
 
   for (int i = tid; i < BQ * DH; i += THREADS) {
     const int r = i / DH, d = i % DH, qi = q_start + r;
-    Qs[r * QP + d] = qi < Sq ? to_float(qb[qi * qs.s + d]) : 0.f;
+    Qs[r * QP + d] = qi < Sq ? qb[qi * qs.s + d] : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = NEG_INF;
@@ -127,8 +112,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * DH; i += THREADS) {
       const int r = i / DH, d = i % DH, ki = k_start + r;
       const bool in = ki < Sk;
-      Ks[r * QP + d] = in ? to_float(kb[ki * ks.s + d]) : 0.f;
-      Vs[r * DH + d] = in ? to_float(vb[ki * vs.s + d]) : 0.f;
+      Ks[r * QP + d] = in ? kb[ki * ks.s + d] : 0.f;
+      Vs[r * DH + d] = in ? vb[ki * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -182,8 +167,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      Ss[r * SP + lane] = to_float(from_float<T>(p0));
-      Ss[r * SP + lane + 32] = to_float(from_float<T>(p1));
+      Ss[r * SP + lane] = p0;
+      Ss[r * SP + lane + 32] = p1;
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
@@ -223,43 +208,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      ob[qi * os.s + tx + 16 * j] = from_float<T>(acc[i][j] / l);
+      ob[qi * os.s + tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
            Strides os, int causal, int has_window, int window, float scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / KV, Sq, Sk, qs, ks,
+  flash_fwd_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / KV, Sq, Sk,
+      qs, ks,
       vs, os, causal, has_window, window, scale);
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
                 int B, int H, int KV, int Sq, int Sk, Strides qs, Strides ks,
                 Strides vs, Strides os, int causal, int has_window,
                 int window, float scale, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                           causal, has_window, window, scale, stream);
+      return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
+                        causal, has_window, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                           causal, has_window, window, scale, stream);
+      return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
+                        causal, has_window, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                            causal, has_window, window, scale, stream);
+      return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
+                         causal, has_window, window, scale, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -268,27 +253,21 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (B, H, Sq, dh), k/v: (B, KV, Sk, dh), o like q, each addressed through
-// its (b, h, s) strides in elements with a contiguous head dim. dtype: 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// its (b, h, s) strides in elements with a contiguous head dim, float32.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int Sq, int Sk, int dh, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, int causal, int has_window, int window,
-    float scale, int dtype, void* stream) {
+    float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || B > 65535 ||
       H > 65535)
     return int(cudaErrorInvalidValue);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                              os, causal, has_window, window, scale, st);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, B, H, KV, Sq, Sk, qs,
-                                      ks, vs, os, causal, has_window, window,
-                                      scale, st);
-  return int(cudaErrorInvalidValue);
+  return dispatch_dh(dh, q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
+                     causal, has_window, window, scale, st);
 }

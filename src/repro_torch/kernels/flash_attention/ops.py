@@ -1,8 +1,9 @@
 """Public flash attention op in the model's (B, S, H, dh) layout.
 
 A CPU tensor goes to the plain PyTorch version (`ref.py`); any other
-device goes to the CUDA kernel (`kernel.py`), which launches or raises.
-Nothing falls back from one to the other. Both routes accept and reject
+device goes to the CUDA kernels (`kernel.py`: bf16 to the tensor-core
+kernel, fp32 to the SIMT kernel), which launch or raise. Nothing falls
+back from one to another. Both routes accept and reject
 the same shapes (`kernel.check_tiling`).
 """
 from __future__ import annotations

@@ -4,11 +4,16 @@ On the CPU, `repro_torch.kernels.flash_attention.ops.flash_attention`
 runs the kernel's plain version (`ref.py`). It is held against the
 reference's Pallas kernel in interpret mode and against its
 `attention_ref`, on the reference kernel test's 18-case sweep with the
-reference's tolerances (atol = rtol = 2e-2 in bf16, 2e-5 in fp32). The
-bf16 inputs are the reference's own bf16 arrays, carried bit for bit.
-The CUDA kernel itself runs only on the card (`chip_smoke.py` holds it
-against the same plain version on the same 18 cases).
+reference's tolerances (atol = rtol = 2e-2 in bf16, 2e-5 in fp32), and
+on the edge shapes of the tensor-core kernel. The bf16 inputs are the
+reference's own bf16 arrays, carried bit for bit. The CUDA kernels
+themselves run only on the card (`chip_smoke.py` holds them against the
+same plain version on the same 18 cases and the edges at full length);
+here the wrapper's routing by dtype and its refusals, which come before
+any build or launch, are checked.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -20,6 +25,8 @@ from repro.kernels.flash_attention.ops import \
     flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    kernel as kernel_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as pt_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bhsd)
@@ -96,3 +103,107 @@ def test_cpu_route_never_launches_and_kernel_refuses_cpu():
         flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2))
     assert flash_attention_bhsd.launches == before
+
+
+# The tensor-core kernel's edges, as chip_smoke.py's FLASH_EDGES at CPU
+# sizes: (S, H, KV, dh, causal, window). Lengths off its 128-row tiles,
+# windows across them, non-causal rows (one with a window), G = H / KV of
+# 1, 4 and 8, every head dim, one token.
+EDGES = [(200, 4, 4, 128, True, None), (200, 8, 2, 64, True, 60),
+         (200, 8, 1, 32, False, None), (200, 16, 2, 128, False, 60),
+         (77, 4, 2, 128, True, 50), (129, 2, 2, 64, False, None),
+         (1, 2, 1, 64, True, None)]
+
+
+@pytest.mark.parametrize("S,H,KV,dh,causal,window", EDGES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_attention_edges(S, H, KV, dh, causal, window, dtype):
+    """On the CPU, `ops.flash_attention` equals the reference's kernel (in
+    interpret mode) and its `attention_ref` at the edge shapes the card's
+    kernels are held to, with the sweep's tolerances."""
+    q, k, v = _inputs(S, H, KV, dh, dtype, S + dh)
+    want_kernel = jax_flash(q, k, v, causal=causal, window=window,
+                            block_q=S, block_k=S, interpret=True)
+    want_ref = jnp.swapaxes(jax_ref(
+        jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2),
+        causal=causal, window=window), 1, 2)
+    tq, tk, tv = _port(q, k, v)
+    got = pt_ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                 block_q=S, block_k=S)
+    assert got.shape == (2, S, H, dh) and got.dtype == tq.dtype
+    got = tensor_to_numpy(got)
+    assert np.all(np.isfinite(got))
+    tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+def test_route_by_dtype():
+    """The dtype alone picks the kernel: bf16 the tensor-core kernel, fp32
+    the SIMT kernel, each with its own source; any other dtype raises."""
+    assert kernel_mod.route(torch.bfloat16) == "wgmma"
+    assert kernel_mod.route(torch.float32) == "simt"
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="not one of"):
+            kernel_mod.route(dtype)
+    csrc = Path(kernel_mod.__file__).resolve().parents[2] / "csrc"
+    assert set(kernel_mod.SOURCES) == set(kernel_mod.ROUTES.values())
+    for name in kernel_mod.SOURCES.values():
+        assert (csrc / f"{name}.cu").is_file()
+    assert set(flash_attention_bhsd.route_launches) == set(kernel_mod.SOURCES)
+
+
+def _bhsd_views(B, S, H, KV, dh, dtype, offset=0, s_pad=0):
+    """(B, heads, S, dh) views of (B, S, heads, dh + s_pad) storage, as the
+    model passes them; q starts `offset` elements into its buffer."""
+    def view(n, off):
+        buf = torch.zeros(off + B * S * n * (dh + s_pad), dtype=dtype)
+        t = buf[off:].view(B, S, n, dh + s_pad)[..., :dh]
+        return t.transpose(1, 2)
+    return view(H, offset), view(KV, 0), view(KV, 0)
+
+
+def _no_build(*_):
+    raise AssertionError("the wrapper built a kernel before checking")
+
+
+@pytest.mark.parametrize("case,dtype,match", [
+    ("cpu", torch.bfloat16, "current CUDA device"),
+    ("cpu", torch.float32, "current CUDA device"),
+    ("address", torch.bfloat16, "q's address is not 16-byte aligned"),
+    ("stride", torch.bfloat16, "k's stride"),
+    ("head_dim", torch.bfloat16, "head dim 96"),
+    ("head_dim", torch.float32, "head dim 96"),
+    ("dtype", torch.float16, "must share one of"),
+])
+def test_wrapper_refuses_before_build(monkeypatch, case, dtype, match):
+    """`flash_attention_bhsd` raises ValueError on CPU tensors, on
+    addresses or strides TMA cannot take (bf16 route) and on an
+    unsupported head dim, before it builds or launches anything."""
+    monkeypatch.setattr(kernel_mod._build, "load", _no_build)
+    kernel_mod._entry.cache_clear()
+    dh = 96 if case == "head_dim" else 64
+    q, k, v = _bhsd_views(2, 40, 4, 2, dh, dtype,
+                          offset=1 if case == "address" else 0,
+                          s_pad=4 if case == "stride" else 0)
+    if case == "stride":                 # q aligned, k's rows 136 B apart
+        q = _bhsd_views(2, 40, 4, 2, dh, dtype)[0]
+    before = (flash_attention_bhsd.launches,
+              dict(flash_attention_bhsd.route_launches))
+    with pytest.raises(ValueError, match=match):
+        flash_attention_bhsd(q, k, v, causal=True)
+    assert (flash_attention_bhsd.launches,
+            flash_attention_bhsd.route_launches) == before
+
+
+def test_tma_strides_of_the_model_layout():
+    """The model's (B, S, H, dh) tensors, passed as (B, H, S, dh) views,
+    give TMA their own strides; a dim of length 1 gets a harmless one."""
+    q, k, _ = _bhsd_views(2, 40, 4, 2, 128, torch.bfloat16)
+    assert kernel_mod.tma_strides(q, "q") == [40 * 4 * 128, 128, 4 * 128]
+    one = _bhsd_views(1, 40, 1, 1, 64, torch.bfloat16)[0][:, :, :1]
+    assert kernel_mod.tma_strides(one, "q") == [64, 64, 64]
+    odd = torch.zeros(2, 3, 5, 68, dtype=torch.bfloat16)[:, :, :, :64]
+    with pytest.raises(ValueError, match="stride"):
+        kernel_mod.tma_strides(odd, "v")
