@@ -28,10 +28,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                `flash_attention.cu`; the route counts are checked): the
                reference kernel test's 18 cases (atol = rtol = 2e-2 in
                bf16, 2e-5 in fp32), phase 7's ragged 496-token prefill
-               shape, 9 bf16 edge cases of the tensor-core kernel
-               (`FLASH_EDGES`: S = 1000, 129, 77 and 1, windows across
-               its 128-row tiles, non-causal, G of 1, 4 and 8, dh 32, 64
-               and 128), and the serving shape, qwen3-4b prefill (B=4,
+               shape, 11 edge cases on both routes (`FLASH_EDGES`: S =
+               1000, 129, 77 and 1, windows across the tensor-core
+               kernel's 128-row tiles, non-causal, G of 1, 4 and 8, dh 32,
+               64, 96 and 128), and the serving shape, qwen3-4b prefill (B=4,
                S=2048, 32 heads, 8 KV heads, dh 128, causal, bf16, in the
                model's strided layout), the bf16 checks past the sweep
                held to the rounding bound of `flash_compare`; at the
@@ -53,15 +53,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                (logits within 2e-3 after prefill, 5e-3 in decode); the
                72 flash launches (36 in each) all on the simt route;
   8. ssd    -- the `ssd_scan` kernel (`ssd_intra_chunk`) against its plain
-               version on the card: the reference test's 3 cases and a
-               ragged chunk of 248 rows at atol = rtol = 1e-4, with
-               `ops.ssd_scan` against the O(S) recurrence on the same
-               inputs; the serving shape (mamba2-1.3b prefill, B=4,
-               S=2048, 64 heads of 64, d_state 128, chunks of 256) held to
-               a limit from each output's sum of |terms| (`ssd_compare`),
-               checked to reject a wrong head or q tile; there the
-               kernel's device time, its time per launch from Python, the
-               plain version's time and the bound;
+               version on the card: the reference test's 3 cases, a
+               ragged chunk of 248 rows and 4 edge cases of the kernel
+               (`SSD_EDGES`: chunks of 520, 300 and 1040 rows, 2, 3 and 10
+               heads, hd 18 / ds 10) at atol = rtol = 1e-4, with `ops.ssd_scan`
+               against the O(S) recurrence on the same inputs; the
+               serving shape (mamba2-1.3b prefill, B=4, S=2048, 64 heads
+               of 64, d_state 128, chunks of 256) held to a limit from
+               each output's sum of |terms| with the split-TF32 term
+               (`ssd_scan.ref.ssd_limits`, `ssd_compare`), checked to reject a wrong
+               head or q tile; there the kernel's device time, its time
+               per launch from Python, the plain version's time, the
+               bound of its tensor-core products and the fp32 CUDA-core
+               bound of the kernel it replaced;
   9. mamba2 -- mamba2-1.3b at full width and depth (48 layers) in bf16
                with random weights from a seeded generator on the card: 4
                prompts of 2048 tokens through `forward_prefill`, twice
@@ -72,8 +76,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                steps against `forward_train` over the same 512 tokens
                (chunks of 256), within 2e-3 after prefill, 5e-3 in decode;
  11. paged  -- the `paged_attention` kernel against its plain version on
-               the reference test's 6 cases (atol = rtol = 2e-5 fp32,
-               3e-2 bf16); then a paged KV pool at qwen3-4b's serving
+               the reference test's 6 cases and 6 edge cases
+               (`PAGED_EDGES`: G = 16 and 12 at dh 128, dh 96; both
+               dtypes) (atol = rtol = 2e-5 fp32, 3e-2 bf16); then a paged
+               KV pool at qwen3-4b's serving
                widths built through `repro_torch.memmgr` (36 layers, 520
                pages of 128 tokens, 8 KV heads of 128, bf16; 32 sequences
                under 4 ASIDs, seeded prompt lengths up to 2040 with 128,
@@ -189,6 +195,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 # compares run on the same CUDA cores, at no higher a rate
 CUDA_CORE_OPS_PER_S = 67e12
 BF16_TENSOR_FLOPS = 989e12           # dense bf16 tensor-core rate
+TF32_TENSOR_FLOPS = 495e12           # dense TF32 tensor-core rate
 
 # the reference's flash attention test sweep (tests/test_kernels.py):
 # (S, H, KV, dh, block_q, block_k) x (causal, window) x dtype
@@ -196,14 +203,17 @@ FLASH_SHAPES = [(128, 4, 4, 64, 64, 64), (256, 8, 2, 64, 64, 128),
                 (128, 4, 1, 128, 32, 64)]
 FLASH_MASKS = [(True, None), (False, None), (True, 96)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol = rtol
-# the tensor-core kernel's edges, bf16 under the rounding bound: (S, H, KV,
-# dh, causal, window); lengths off its 128-row tiles, windows that cross
-# them, non-causal rows, G = H / KV of 1, 4 and 8, every head dim
+# the kernels' edges, on both routes (bf16 under the rounding bound, fp32
+# at 2e-5): (S, H, KV, dh, causal, window); lengths off the tensor-core
+# kernel's 128-row tiles, windows that cross them, non-causal rows, G = H /
+# KV of 1, 4 and 8, every head dim (96: phi3-vision's, read as 128 with
+# zero-filled columns by the tensor-core kernel)
 FLASH_EDGES = [(1000, 4, 4, 128, True, None), (1000, 8, 2, 64, True, 300),
                (1000, 8, 1, 32, False, None), (1000, 16, 2, 128, False, 300),
                (1000, 4, 1, 32, True, 300), (1000, 8, 8, 64, False, None),
                (77, 4, 2, 128, True, 50), (129, 2, 2, 64, False, None),
-               (1, 2, 1, 64, True, None)]
+               (1, 2, 1, 64, True, None), (1000, 8, 2, 96, True, None),
+               (129, 4, 4, 96, False, 60)]
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "simt": "src/repro_torch/csrc/flash_attention.cu"}
 # the serving path's flash call: qwen3-4b prefill of 4 x 2048 tokens
@@ -216,12 +226,22 @@ MATCH_TOL_PREFILL, MATCH_TOL_DECODE = 2e-3, 5e-3
 # chunk), B=2; then a ragged chunk of 248 rows (S = 496)
 SSD_SHAPES = [(64, 4, 16, 16, 16), (128, 8, 32, 16, 32), (96, 2, 64, 32, 32),
               (496, 4, 64, 128, 248)]
+# the kernel's own edges, same inputs: chunks past its 4-tile G strip (520
+# rows in 3 strips, 300 in 2, 1040 in 5; 1040 is past 768, so it runs the
+# instance with cs windows), head counts off its 8-head tile (2, 3, 4, 10),
+# widths off 16-byte rows (hd 18, ds 10: 4-byte copies)
+SSD_EDGES = [(1040, 4, 64, 128, 520), (300, 10, 64, 128, 300),
+             (60, 3, 18, 10, 20), (2080, 2, 64, 128, 1040)]
 SSD_TOL = 1e-4
 # the serving path's ssd call: mamba2-1.3b prefill of 4 x 2048 tokens
 SSD_SERVE = dict(B=4, S=2048, nh=64, hd=64, ds=128, Q=256)
 # the reference's paged attention test sweep: (B, H, KV, dh, page, npp)
 PAGED_SHAPES = [(4, 8, 4, 64, 16, 6), (2, 4, 4, 128, 32, 4),
                 (3, 16, 2, 64, 8, 10)]
+# the repo's configs past the sweep: G = H / KV of 16 (glm4-9b) and 12
+# (mistral-large-123b) at dh 128, and dh 96 (phi3-vision) at G 16
+PAGED_EDGES = [(3, 32, 2, 128, 16, 8), (4, 96, 8, 128, 32, 5),
+               (3, 16, 1, 96, 8, 10)]
 PAGED_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
 # the paged pool at qwen3-4b's serving widths
 POOL = dict(n_layers=36, page=128, n_kv=8, dh=128, heads=32, seqs=32,
@@ -583,20 +603,24 @@ def flash_phase(torch, np, kernel, card):
             f"max |err| {err:.3g}, {share:.3g}x "
             f"{'the rounding bound' if bf16 else 'tol'}; median |o| "
             f"{typical:.3g}")
-    zero_counts(kernel)
-    shares = []
-    for S, H, KV, dh, causal, window in FLASH_EDGES:
-        q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", S + dh)
-        err, share, _ = flash_compare(
-            torch, kernel, attention_ref, q, k, v, causal, window, None,
-            rounding=True, block_q=S, block_k=S)
-        errs["bfloat16"].append(err)
-        shares.append(share)
-    routed(kernel, "wgmma", len(FLASH_EDGES), "bf16 edge cases")
-    log(f"[flash] wgmma kernel == plain version on {len(FLASH_EDGES)} bf16 "
-        f"edge cases (ragged S, windows across tile edges, non-causal, G 1 "
-        f"to 8, dh 32/64/128) within the rounding bound (largest share "
-        f"{max(shares):.3g}) [{card}]")
+    shares = {}
+    for dtype, kind in (("float32", "simt"), ("bfloat16", "wgmma")):
+        zero_counts(kernel)
+        bf16 = dtype == "bfloat16"
+        shares[dtype] = []
+        for S, H, KV, dh, causal, window in FLASH_EDGES:
+            q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + dh)
+            err, share, _ = flash_compare(
+                torch, kernel, attention_ref, q, k, v, causal, window,
+                FLASH_TOL[dtype], rounding=bf16, block_q=S, block_k=S)
+            errs[dtype].append(err)
+            shares[dtype].append(share)
+        routed(kernel, kind, len(FLASH_EDGES), f"{dtype} edge cases")
+    log(f"[flash] kernels == plain version on {len(FLASH_EDGES)} edge cases "
+        f"each (ragged S, windows across tile edges, non-causal, G 1 to 8, "
+        f"dh 32/64/96/128): wgmma within the rounding bound (largest share "
+        f"{max(shares['bfloat16']):.3g}), simt within tol 2e-5 (largest "
+        f"share {max(shares['float32']):.3g}) [{card}]")
 
     B, S, H, KV, dh = SERVE_B, SERVE_S, 32, 8, 128
     q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", 0, B=B)
@@ -757,39 +781,15 @@ def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match"):
     torch.cuda.empty_cache()
 
 
-EPS32 = 2.0 ** -23                     # float32 machine epsilon
-
-
-def ssd_limits(torch, ref, x, dA, Bm, Cm):
-    """Per-element limits for the kernel against its plain version at a
-    model shape, from each output's sum of |terms|.
-
-    Both sides sum the same products in other orders: y[q, p] and S[p, d]
-    are chains of at most n = ds + Q float32 products and sums (G over
-    ds, then over the chunk's rows), each rounding at most eps relative,
-    so they differ by at most 2 n eps sum|terms|. Each side also rounds
-    the cumsum of dA, by at most eps sum_i |cs_i| (its partial sums), and
-    that enters exp(cs[q] - cs[s]) and exp(cs_end - cs[s]) as a relative
-    error: 4 eps sum_i |cs_i| sum|terms| for the two sides and two ends.
-    sum|terms| is the plain version on |x|, |B|, |C| (L and the decays
-    are positive). A missing row of one s tile already moves y by ~1/Q of
-    sum|terms|, above this limit; `ssd_compare` checks that a wrong head
-    or q tile breaks it."""
-    ys, ss, dec = ref(x.abs(), dA, Bm.abs(), Cm.abs())
-    e_cs = EPS32 * torch.cumsum(dA, dim=2).abs().sum(dim=2)   # (B, nc, nh)
-    rel = 2 * (Bm.shape[-1] + x.shape[2]) * EPS32 + 4 * e_cs
-    return (rel[:, :, None, :, None] * ys, rel[:, :, :, None, None] * ss,
-            (4 * e_cs + EPS32) * dec)
-
-
 def ssd_compare(torch, kernel, ref, args, tol=None):
     """Kernel vs plain version on one case: every output within tol +
-    tol * |plain| or, without tol, within `ssd_limits`. Returns the max
+    tol * |plain| or, without tol, within `ref.ssd_limits`. Returns the max
     |difference| and its largest share of the limit; raises on a miss."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_limits
     got = kernel(*args)
     want = ref(*args)
     if tol is None:
-        limits = ssd_limits(torch, ref, *args)
+        limits = ssd_limits(*args)
     else:
         limits = [tol + tol * w.abs() for w in want]
     torch.cuda.synchronize()
@@ -820,7 +820,7 @@ def ssd_phase(torch, np, card):
     from repro_torch.kernels.ssd_scan.ref import (ssd_intra_chunk_ref,
                                                   ssd_recurrence_ref)
     errs = []
-    for S, nh, hd, ds, chunk in SSD_SHAPES:
+    for S, nh, hd, ds, chunk in SSD_SHAPES + SSD_EDGES:
         rng = np.random.RandomState(S + nh)        # the reference test's
         arrays = [rng.randn(2, S, nh, hd) * .5,
                   np.abs(rng.randn(2, S, nh)) * .1 + .02,
@@ -837,10 +837,11 @@ def ssd_phase(torch, np, card):
             if not bool(((got - want).abs()
                          <= SSD_TOL + SSD_TOL * want.abs()).all()):
                 raise AssertionError(f"ops.ssd_scan != recurrence (S={S})")
-    log(f"[ssd] kernel == plain version on the reference's 3 sweep cases "
-        f"and a ragged chunk of 248 rows (atol = rtol = {SSD_TOL}; max "
-        f"|err| {max(errs):.3g}); ops.ssd_scan == the O(S) recurrence on "
-        f"all four [{card}]")
+    log(f"[ssd] kernel == plain version on the reference's 3 sweep cases, "
+        f"a ragged chunk of 248 rows and {len(SSD_EDGES)} edge cases (chunks "
+        f"of 520, 300 and 1040 rows, 2, 3, 4 and 10 heads, hd 18 / ds 10) (atol = rtol "
+        f"= {SSD_TOL}; max |err| {max(errs):.3g}); ops.ssd_scan == the O(S) "
+        f"recurrence on all [{card}]")
 
     sv = SSD_SERVE
     B_, S, nh, hd, ds, Q = (sv[k] for k in ("B", "S", "nh", "hd", "ds", "Q"))
@@ -861,23 +862,36 @@ def ssd_phase(torch, np, card):
     launch_ms = time_host(torch, run, 10)
     plain_ms = time_events(torch, lambda: ssd_intra_chunk_ref(*args), 3, 1)
     nc, pairs = S // Q, Q * (Q + 1) // 2
-    # per (b, chunk): G on the s <= q pairs once (2 ds flop a pair); per
-    # head: M = G L (a multiply and an exp a pair), y (2 hd a pair), the
-    # decay-weighted x (Q hd), S (2 Q hd ds), the cumsum (Q)
-    ops_n = B_ * nc * (2 * ds * pairs + nh * (
-        2 * pairs + 2 * hd * pairs + Q * hd + 2 * Q * hd * ds + Q))
+    # the products, per (b, chunk): G on the s <= q pairs once (2 ds flop a
+    # pair); per head y (2 hd a pair) and S (2 Q hd ds). The kernel runs
+    # each in split TF32, three tensor-core passes. The elementwise ops per
+    # head: M = G L (a multiply and an exp a pair), the decay-weighted x
+    # (Q hd), the cumsum (Q)
+    products = B_ * nc * (2 * ds * pairs + nh * (
+        2 * hd * pairs + 2 * Q * hd * ds))
+    elementwise = B_ * nc * nh * (2 * pairs + Q * hd + Q)
     nbytes = 4 * (2 * args[0].numel() + args[1].numel() + args[2].numel()
                   + args[3].numel() + B_ * nc * nh * (hd * ds + 1))
-    by_ops = ops_n / CUDA_CORE_OPS_PER_S * 1e3
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes \
-        else (by_bytes, "bytes")
+    terms = {"operations": max(3 * products / TF32_TENSOR_FLOPS,
+                               elementwise / CUDA_CORE_OPS_PER_S) * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(terms, key=terms.get)
+    bound_ms = terms[bound_by]
+    # the fp32 CUDA-core bound of the kernel it replaced (products and
+    # elementwise ops at 67 TFLOP/s), printed beside the new one
+    fp32_bound_ms = max((products + elementwise) / CUDA_CORE_OPS_PER_S,
+                        nbytes / HBM_BYTES_PER_S) * 1e3
     log(f"[ssd] B={B_} S={S} nh={nh} hd={hd} ds={ds} Q={Q} fp32: max |err| "
         f"{err:.3g}, {share:.3g}x the sum-of-|terms| limit; kernel "
-        f"{ms:.3f} ms on the device, {launch_ms:.3f} ms per launch from "
-        f"Python; plain version {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-        f"by {bound_by} ({ops_n:.4g} fp32 ops at 67 TFLOP/s, {nbytes:.4g} "
-        f"B at 3.35 TB/s) [{card}]")
+        f"{ms:.4f} ms on the device ({bound_ms / ms:.3f} of the bound), "
+        f"{launch_ms:.4f} ms per launch from Python; plain version "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({products:.4g} flop of products x 3 split-TF32 passes at 495 "
+        f"TFLOP/s: {3 * products / TF32_TENSOR_FLOPS * 1e3:.4f} ms; "
+        f"{elementwise:.4g} elementwise ops at 67 TFLOP/s: "
+        f"{elementwise / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms; {nbytes:.4g} B "
+        f"at 3.35 TB/s: {terms['bytes']:.4f} ms); the fp32 CUDA-core bound "
+        f"{fp32_bound_ms:.4f} ms [{card}]")
     del x, B, C, dt, args
     torch.cuda.empty_cache()
     return {"name": "ssd_scan", "route": "cuda",
@@ -886,6 +900,7 @@ def ssd_phase(torch, np, card):
             "launches": None, "max_abs_err": max(errs), "ms": ms,
             "launch_ms": launch_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_share": bound_ms / ms,
             "cases": len(errs), "shape": dict(sv, dtype="float32")}
 
 
@@ -932,7 +947,7 @@ def paged_phase(torch, np, card):
     errs = []
     for dtype in ("float32", "bfloat16"):
         tol = PAGED_TOL[dtype]
-        for B, H, KV, dh, page, npp in PAGED_SHAPES:
+        for B, H, KV, dh, page, npp in PAGED_SHAPES + PAGED_EDGES:
             rng = np.random.RandomState(B * H)     # the reference test's
             P = npp * B + 4
             dt = getattr(torch, dtype)
@@ -955,8 +970,9 @@ def paged_phase(torch, np, card):
                                      f"({B}, {H}, {KV}, {dh}, {page}, {npp})"
                                      f" {dtype}: max |err| {errs[-1]:.3g}")
     log(f"[paged] kernel == plain version on the reference's 6 sweep cases "
-        f"(atol = rtol = 2e-5 fp32, 3e-2 bf16; max |err| {max(errs):.3g}) "
-        f"[{card}]")
+        f"and {2 * len(PAGED_EDGES)} edge cases (G 16 and 12 at dh 128, dh "
+        f"96; atol = rtol = 2e-5 fp32, 3e-2 bf16; max |err| "
+        f"{max(errs):.3g}) [{card}]")
 
     L, page, KV, dh, H = (POOL[k] for k in ("n_layers", "page", "n_kv", "dh",
                                             "heads"))

@@ -242,6 +242,9 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
                         causal, has_window, window, scale, stream);
+    case 96:
+      return launch<96>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
+                        causal, has_window, window, scale, stream);
     case 128:
       return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
                          causal, has_window, window, scale, stream);

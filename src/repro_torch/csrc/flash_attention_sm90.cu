@@ -48,7 +48,8 @@
 //   128-column head is two 64-column boxes. Shared memory at dh 128: Q 32 KB
 //   plus 2 stages of K and V, 32 KB each: 160 KB. A 32-column head is read as
 //   one 64-column box whose upper half TMA fills with zeros (they add nothing
-//   to q.k, and o's zero columns are not stored).
+//   to q.k, and o's zero columns are not stored); a 96-column head likewise
+//   as two boxes, columns 96-127 zero-filled.
 // - The softmax stays in registers: each thread holds pieces of two rows and
 //   takes their max over the 4 threads of a quad with shuffles; l stays a
 //   per-thread partial sum until the end; exp2 is the MUFU's ex2.approx.
@@ -397,7 +398,8 @@ __device__ __forceinline__ Work work_tile(int w, int H, int B, int nqt,
   return t;
 }
 
-// DHP: the head dim as tiled, 64 or 128 (a head of 32 is read as 64).
+// DHP: the head dim as tiled, 64 or 128 (a head of 32 is read as 64, one
+// of 96 as 128).
 // Persistent: each CTA walks the work tiles blockIdx.x, + gridDim.x, ...;
 // the K/V ring runs on across tiles, and the next tile's Q loads while the
 // consumers finish the last one's products and store its output.
@@ -676,7 +678,8 @@ extern "C" int flash_attention_sm90_fwd(
   if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 ||
       (long long)((Sq + BQ - 1) / BQ) * H * B > 2147483647LL)
     return int(cudaErrorInvalidValue);
-  if (dh != 32 && dh != 64 && dh != 128) return int(cudaErrorInvalidValue);
+  if (dh != 32 && dh != 64 && dh != 96 && dh != 128)
+    return int(cudaErrorInvalidValue);
   if (!encoder()) return int(cudaErrorSymbolNotFound);
   CUtensorMap qm, km, vm;
   CUresult res = encode(&qm, q, dh, Sq, H, B, Strides{qsb, qsh, qss});
@@ -687,9 +690,9 @@ extern "C" int flash_attention_sm90_fwd(
   if (res != CUDA_SUCCESS) return 1000 + int(res);
   const Strides os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 128)
-    return launch<128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                       has_window, window, scale, st);
-  return launch<64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                    has_window, window, scale, st);
+  if (dh <= 64)
+    return launch<64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
+                      has_window, window, scale, st);
+  return launch<128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
+                     has_window, window, scale, st);
 }

@@ -36,7 +36,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int G_MAX = 8;          // query heads per KV head
+constexpr int G_MAX = 16;         // query heads per KV head
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -53,7 +53,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype does
 }
 
-template <typename T, int DH>
+// GB: the register arrays' bound on the group G = H / KV, 8 or 16, so a
+// group of up to 8 keeps the smaller footprint
+template <typename T, int DH, int GB>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ bt,
@@ -70,9 +72,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int kv = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const T* qb = q + ((long long)b * H + (long long)kv * G) * DH;
-  float qr[G_MAX][NV];
+  float qr[GB][NV];
 #pragma unroll
-  for (int g = 0; g < G_MAX; ++g)
+  for (int g = 0; g < GB; ++g)
 #pragma unroll
     for (int i = 0; i < NV; ++i)
       qr[g][i] = g < G ? to_float(qb[g * DH + lane + 32 * i]) : 0.f;
@@ -80,9 +82,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
-  float acc[G_MAX];
+  float acc[GB];
 #pragma unroll
-  for (int g = 0; g < G_MAX; ++g) acc[g] = 0.f;
+  for (int g = 0; g < GB; ++g) acc[g] = 0.f;
 
   const int len = seq_lens[b];
   const int n_live = len > 0 ? min((len + page - 1) / page, n_pages) : 0;
@@ -102,7 +104,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int i = 0; i < NV; ++i) kr[i] = to_float(kpg[t * tok + lane + 32 * i]);
 #pragma unroll
-      for (int g = 0; g < G_MAX; ++g) {
+      for (int g = 0; g < GB; ++g) {
         if (g >= G) break;                        // uniform across the warp
         float part = 0.f;
 #pragma unroll
@@ -145,12 +147,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     // acc = acc * corr + p . v, thread tid owns column tid
     if (tid < DH) {
 #pragma unroll
-      for (int g = 0; g < G_MAX; ++g)
+      for (int g = 0; g < GB; ++g)
         if (g < G) acc[g] *= c_s[g];
       for (int t = 0; t < page; ++t) {
         const float vv = to_float(vpg[t * tok + tid]);
 #pragma unroll
-        for (int g = 0; g < G_MAX; ++g)
+        for (int g = 0; g < GB; ++g)
           if (g < G) acc[g] = fmaf(ss[g * page + t], vv, acc[g]);
       }
     }
@@ -160,27 +162,38 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (tid < DH) {
     T* ob = o + ((long long)b * H + (long long)kv * G) * DH;
 #pragma unroll
-    for (int g = 0; g < G_MAX; ++g)
+    for (int g = 0; g < GB; ++g)
       if (g < G) ob[g * DH + tid] = from_float<T>(acc[g] / fmaxf(l_s[g], 1e-30f));
   }
+}
+
+template <typename T, int DH, int GB>
+int launch_g(const void* q, const void* kp, const void* vp, const int* bt,
+             const int* sl, void* o, int B, int H, int KV, int page,
+             int n_pages, int P, float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  const size_t smem = sizeof(float) * (size_t(G) * page + 3 * size_t(G));
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_kernel<T, DH, GB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(KV, B);
+  paged_attention_kernel<T, DH, GB><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), bt, sl, static_cast<T*>(o), H, KV, G, page,
+      n_pages, P, scale);
+  return int(cudaGetLastError());
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* sl, void* o, int B, int H, int KV, int page,
            int n_pages, int P, float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const size_t smem = sizeof(float) * (size_t(G) * page + 3 * size_t(G));
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T, DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid(KV, B);
-  paged_attention_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, sl, static_cast<T*>(o), H, KV, G, page,
-      n_pages, P, scale);
-  return int(cudaGetLastError());
+  if (H / KV <= 8)
+    return launch_g<T, DH, 8>(q, kp, vp, bt, sl, o, B, H, KV, page, n_pages,
+                              P, scale, stream);
+  return launch_g<T, DH, G_MAX>(q, kp, vp, bt, sl, o, B, H, KV, page,
+                                n_pages, P, scale, stream);
 }
 
 template <typename T>
@@ -194,6 +207,9 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
                            scale, stream);
     case 64:
       return launch<T, 64>(q, kp, vp, bt, sl, o, B, H, KV, page, n_pages, P,
+                           scale, stream);
+    case 96:
+      return launch<T, 96>(q, kp, vp, bt, sl, o, B, H, KV, page, n_pages, P,
                            scale, stream);
     case 128:
       return launch<T, 128>(q, kp, vp, bt, sl, o, B, H, KV, page, n_pages,

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)        # the kernels' template instances
+HEAD_DIMS = (32, 64, 96, 128)    # head dims both kernels take
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 SOURCES = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
 TMA_ALIGN = 16                   # bytes: TMA's rule for addresses, strides

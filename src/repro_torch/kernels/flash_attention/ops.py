@@ -3,8 +3,11 @@
 A CPU tensor goes to the plain PyTorch version (`ref.py`); any other
 device goes to the CUDA kernels (`kernel.py`: bf16 to the tensor-core
 kernel, fp32 to the SIMT kernel), which launch or raise. Nothing falls
-back from one to another. Both routes accept and reject
-the same shapes (`kernel.check_tiling`).
+back from one to another. Both devices hold sequence lengths to the same
+tiling (`kernel.check_tiling`). The CPU route takes any head dim; on the
+card both kernels take a head dim in `kernel.HEAD_DIMS` (32, 64, 96, 128)
+and raise ValueError on any other; the bf16 kernel also needs 16-byte
+aligned addresses and strides (`kernel.tma_strides`).
 """
 from __future__ import annotations
 

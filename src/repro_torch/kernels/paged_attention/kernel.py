@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)        # the kernel's template instances
-G_MAX = 8                        # query heads per KV head
+HEAD_DIMS = (32, 64, 96, 128)    # the kernel's template instances
+G_MAX = 16                       # query heads per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import _build
 
 HD_MAX, DS_MAX = 64, 128          # the kernel's tile limits
+Q_MAX = 30656                     # chunk rows whose tile prefixes fit on chip
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,8 +29,9 @@ def _entry():
 
 def ssd_intra_chunk(x, dA, Bm, Cm):
     """x: (B, nc, Q, nh, hd); dA: (B, nc, Q, nh); Bm/Cm: (B, nc, Q, ds),
-    float32 and contiguous on the current CUDA device. Returns y (B, nc, Q,
-    nh, hd), S (B, nc, nh, hd, ds), decay (B, nc, nh), float32."""
+    float32 and contiguous on the current CUDA device, hd <= HD_MAX,
+    ds <= DS_MAX, Q <= Q_MAX. Returns y (B, nc, Q, nh, hd), S (B, nc, nh,
+    hd, ds), decay (B, nc, nh), float32."""
     dev = x.device
     if dev.type != "cuda" or dev.index != torch.cuda.current_device():
         raise ValueError(f"ssd_scan kernel needs tensors on the current "
@@ -46,9 +48,9 @@ def ssd_intra_chunk(x, dA, Bm, Cm):
         raise ValueError(f"ssd_scan: dA {tuple(dA.shape)} or B/C "
                          f"{tuple(Bm.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    if hd > HD_MAX or ds > DS_MAX:
-        raise ValueError(f"ssd_scan: head dim {hd} > {HD_MAX} or state "
-                         f"dim {ds} > {DS_MAX}")
+    if hd > HD_MAX or ds > DS_MAX or Q > Q_MAX:
+        raise ValueError(f"ssd_scan: head dim {hd} > {HD_MAX}, state dim "
+                         f"{ds} > {DS_MAX} or chunk {Q} > {Q_MAX}")
     for t, name in ((x, "x"), (dA, "dA"), (Bm, "B"), (Cm, "C")):
         if t.dtype != torch.float32 or t.device != dev \
                 or not t.is_contiguous():

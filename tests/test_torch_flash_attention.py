@@ -108,11 +108,12 @@ def test_cpu_route_never_launches_and_kernel_refuses_cpu():
 # The tensor-core kernel's edges, as chip_smoke.py's FLASH_EDGES at CPU
 # sizes: (S, H, KV, dh, causal, window). Lengths off its 128-row tiles,
 # windows across them, non-causal rows (one with a window), G = H / KV of
-# 1, 4 and 8, every head dim, one token.
+# 1, 4 and 8, every head dim (96: phi3-vision's), one token.
 EDGES = [(200, 4, 4, 128, True, None), (200, 8, 2, 64, True, 60),
          (200, 8, 1, 32, False, None), (200, 16, 2, 128, False, 60),
          (77, 4, 2, 128, True, 50), (129, 2, 2, 64, False, None),
-         (1, 2, 1, 64, True, None)]
+         (1, 2, 1, 64, True, None), (200, 8, 2, 96, True, None),
+         (129, 4, 4, 96, False, 60)]
 
 
 @pytest.mark.parametrize("S,H,KV,dh,causal,window", EDGES)
@@ -173,8 +174,8 @@ def _no_build(*_):
     ("cpu", torch.float32, "current CUDA device"),
     ("address", torch.bfloat16, "q's address is not 16-byte aligned"),
     ("stride", torch.bfloat16, "k's stride"),
-    ("head_dim", torch.bfloat16, "head dim 96"),
-    ("head_dim", torch.float32, "head dim 96"),
+    ("head_dim", torch.bfloat16, "head dim 80"),
+    ("head_dim", torch.float32, "head dim 80"),
     ("dtype", torch.float16, "must share one of"),
 ])
 def test_wrapper_refuses_before_build(monkeypatch, case, dtype, match):
@@ -183,7 +184,7 @@ def test_wrapper_refuses_before_build(monkeypatch, case, dtype, match):
     unsupported head dim, before it builds or launches anything."""
     monkeypatch.setattr(kernel_mod._build, "load", _no_build)
     kernel_mod._entry.cache_clear()
-    dh = 96 if case == "head_dim" else 64
+    dh = 80 if case == "head_dim" else 64
     q, k, v = _bhsd_views(2, 40, 4, 2, dh, dtype,
                           offset=1 if case == "address" else 0,
                           s_pad=4 if case == "stride" else 0)

@@ -2,7 +2,7 @@
 
 * Importing every module of `repro_torch` leaves `jax` and every `repro.*`
   module out of `sys.modules` (checked in a fresh interpreter), and
-  `chip_smoke.py` and the `scripts/torch_*_profile.py` import neither.
+  `chip_smoke.py` and the `scripts/torch_*.py` import neither.
 * `run_mix` with the default device runs on CUDA or raises; it never
   carries on on the CPU. A kernel backend that does not match the device
   raises.
@@ -45,7 +45,7 @@ def test_port_imports_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "scripts/torch_step_profile.py",
-    "scripts/torch_serve_profile.py"] + sorted(
+    "scripts/torch_serve_profile.py", "scripts/torch_ssd_variants.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "src/repro_torch").rglob("*.py")))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())

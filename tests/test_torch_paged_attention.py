@@ -26,6 +26,9 @@ from repro.kernels.paged_attention.ops import \
     paged_attention as jax_paged  # noqa: E402
 from repro.kernels.paged_attention.ref import \
     paged_attention_ref as jax_ref  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     kernel as pt_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pt_ops  # noqa: E402
@@ -61,6 +64,9 @@ def _port(*arrays):
     (4, 8, 4, 64, 16, 6),
     (2, 4, 4, 128, 32, 4),        # MHA-ish
     (3, 16, 2, 64, 8, 10),        # GQA 8:1
+    (2, 32, 2, 128, 16, 4),       # GQA 16:1 (glm4-9b)
+    (2, 24, 2, 128, 16, 4),       # GQA 12:1 (mistral-large-123b)
+    (2, 8, 8, 96, 16, 4),         # dh 96 (phi3-vision)
 ])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_paged_attention_sweep(B, H, KV, dh, page, npp, dtype):
@@ -101,3 +107,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="current CUDA device"):
         pt_kernel.paged_attention(q, kp, vp, bt, sl)
     assert pt_kernel.paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("arch", sorted(
+    name for name, cfg in ARCHS.items() if not cfg.is_attention_free))
+def test_attention_kernels_take_every_config(arch):
+    """Every model config with attention has a head dim that both flash
+    kernels and the paged kernel take, and a GQA group (H / KV) within
+    the paged kernel's G_MAX: the card refuses no shape the reference
+    computes for the repo's configs."""
+    cfg = ARCHS[arch]
+    assert cfg.head_dim in flash_kernel.HEAD_DIMS
+    assert cfg.head_dim in pt_kernel.HEAD_DIMS
+    assert cfg.n_heads % cfg.n_kv_heads == 0
+    assert cfg.n_heads // cfg.n_kv_heads <= pt_kernel.G_MAX

@@ -8,7 +8,10 @@ reference kernel test's 3 sweep cases and two ragged chunks (Q = 10 and
 Q = 248, not multiples of the CUDA kernel's 64-row tiles), at the
 reference's atol = rtol = 1e-4 (float32; measured errors ~1e-6). The CUDA
 kernel runs only on the card (`chip_smoke.py` phase 8 holds it against
-the same plain version).
+the same plain version). Its arithmetic, split-TF32 products
+(`ref.ssd_intra_chunk_split_ref`), is held here to the reference at the
+same 1e-4, and at a reduced serving shape to `ref.ssd_limits`, the
+limit `chip_smoke.py` holds the kernel to at the serving shape.
 """
 import numpy as np
 import pytest
@@ -105,3 +108,60 @@ def test_shape_contract():
     with pytest.raises(ValueError, match="current CUDA device"):
         pt_kernel.ssd_intra_chunk(xc, dAc, Bc, Bc)
     assert pt_kernel.ssd_intra_chunk.launches == 0
+
+
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES)
+def test_split_tf32_matches_reference_kernel(S, nh, hd, ds, chunk):
+    """The CUDA kernel's arithmetic (each product in split TF32, emulated
+    on the CPU) meets the reference's 1e-4 on the sweep."""
+    x, dt, A, B, C = _inputs(S, nh, hd, ds)
+    nc = S // chunk
+    args = ((x * dt[..., None]).reshape(2, nc, chunk, nh, hd),
+            (dt * A).reshape(2, nc, chunk, nh),
+            B.reshape(2, nc, chunk, ds), C.reshape(2, nc, chunk, ds))
+    got = pt_ref.ssd_intra_chunk_split_ref(*map(torch.from_numpy, args))
+    want = jax_intra(*map(jnp.asarray, args), head_tile=min(8, nh),
+                     interpret=True)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        _close(g, w)
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest with ties away from zero, 10 stored mantissa
+    bits, the low 13 bits of the float32 cleared."""
+    one = 1.0
+    vals = torch.tensor([one + 2 ** -11, one + 2 ** -12, one + 3 * 2 ** -12,
+                         -(one + 2 ** -11), 3.0, 0.0, 2 ** -130],
+                        dtype=torch.float32)
+    want = [one + 2 ** -10, one, one + 2 ** -10, -(one + 2 ** -10), 3.0,
+            0.0, 2 ** -130]
+    got = pt_ref.tf32_round(vals)
+    assert got.tolist() == want
+    rng = np.random.RandomState(0)
+    t = torch.from_numpy(rng.randn(4096).astype(np.float32))
+    r = pt_ref.tf32_round(t)
+    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((r - t).abs() <= 2.0 ** -11 * t.abs()).all())
+
+
+def test_split_tf32_within_smoke_limit():
+    """At a reduced serving shape (B=1, S=512 in chunks of 256, 4 heads of
+    64, d_state 128), the split-TF32 arithmetic stays within
+    `ref.ssd_limits` of the float32 plain version, and the limit
+    still rejects a wrong head or q tile."""
+    rng = np.random.RandomState(8)
+    b, S, nh, hd, ds, Q = 1, 512, 4, 64, 128, 256
+    x = torch.from_numpy((rng.randn(b, S, nh, hd) * .5).astype(np.float32))
+    B, C = (torch.from_numpy((rng.randn(b, S, ds) * .5).astype(np.float32))
+            for _ in range(2))
+    dt = torch.from_numpy((rng.rand(b, S, nh) * .1 + .02).astype(np.float32))
+    A = torch.from_numpy(-(rng.rand(nh) * .5 + .1).astype(np.float32))
+    args = pt_ops.chunk_inputs(x, dt, A, B, C, Q)
+    got = pt_ref.ssd_intra_chunk_split_ref(*args)
+    want = pt_ref.ssd_intra_chunk_ref(*args)
+    limits = pt_ref.ssd_limits(*args)
+    for g, w, lim in zip(got, want, limits):
+        assert bool(((g - w).abs() <= lim).all())
+    for wrong in (want[0].roll(1, dims=3), want[0].roll(64, dims=2)):
+        assert bool(((got[0] - wrong).abs() > limits[0]).any())
