@@ -75,10 +75,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                496 tokens (chunks of 248 rows) plus 16 `forward_decode`
                steps against `forward_train` over the same 512 tokens
                (chunks of 256), within 2e-3 after prefill, 5e-3 in decode;
- 11. paged  -- the `paged_attention` kernel against its plain version on
-               the reference test's 6 cases and 6 edge cases
-               (`PAGED_EDGES`: G = 16 and 12 at dh 128, dh 96; both
-               dtypes) (atol = rtol = 2e-5 fp32, 3e-2 bf16); then a paged
+ 11. paged  -- the `paged_attention` kernel (split + combine, two CUDA
+               launches per call) against its plain version on the
+               reference test's 3 cases, `PAGED_EDGES` (G = 16 and 12 at
+               dh 128, dh 96) and `PAGED_SPLIT_EDGES` (the CPU test's
+               split cases and lengths 1, 128, 129, 8192 over 64 pages),
+               in both dtypes (atol = rtol = 2e-5 fp32, 3e-2 bf16); a q
+               off 16-byte alignment refused; then a paged
                KV pool at qwen3-4b's serving
                widths built through `repro_torch.memmgr` (36 layers, 520
                pages of 128 tokens, 8 KV heads of 128, bf16; 32 sequences
@@ -90,7 +93,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                launch held to the plain version, the plain version at the
                last step held to dense attention over this script's own
                contiguous copy of the tokens (bf16 rounding limit of
-               `flash_compare`), launches == 36 x 8; one layer's launch
+               `flash_compare`), launches == 36 x 8; the split plan
+               logged, two runs equal bit for bit; one layer's call
                timed against its bound.
 
 The line before the last is the card's name and power limit; the last
@@ -242,6 +246,20 @@ PAGED_SHAPES = [(4, 8, 4, 64, 16, 6), (2, 4, 4, 128, 32, 4),
 # (mistral-large-123b) at dh 128, and dh 96 (phi3-vision) at G 16
 PAGED_EDGES = [(3, 32, 2, 128, 16, 8), (4, 96, 8, 128, 32, 5),
                (3, 16, 1, 96, 8, 10)]
+# the kernel's split (`kernel.split_plan`): the CPU test's split cases
+# (tests/test_torch_paged_attention.py SPLIT_CASES: page 5 and 1, 1 and 40
+# pages per sequence, lengths at a split boundary and one past it, a
+# length 0 among live ones, G 12 and 16, dh 96), then a long one: 64
+# pages of 128 per sequence, lengths 1, 128, 129 and 8192.
+# (B, H, KV, dh, page, pages per sequence, seq_lens)
+PAGED_SPLIT_EDGES = [(3, 8, 2, 64, 5, 60, (300, 125, 126)),
+                     (2, 4, 4, 32, 1, 300, (256, 129)),
+                     (4, 8, 4, 64, 16, 1, (16, 1, 7, 0)),
+                     (3, 16, 2, 128, 8, 40, (320, 128, 129)),
+                     (3, 24, 2, 128, 16, 12, (128, 0, 190)),
+                     (2, 32, 2, 128, 16, 10, (160, 129)),
+                     (3, 8, 8, 96, 16, 20, (320, 129, 0)),
+                     (4, 32, 8, 128, 128, 64, (1, 128, 129, 8192))]
 PAGED_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
 # the paged pool at qwen3-4b's serving widths
 POOL = dict(n_layers=36, page=128, n_kv=8, dh=128, heads=32, seqs=32,
@@ -936,43 +954,90 @@ def rounding_check(torch, got, want, spread, what):
     return float(err.max()), float((err / limit).max())
 
 
+def paged_inputs(torch, np, B, H, KV, dh, page, npp, dtype, lens=None):
+    """q, k/v pages, block table, seq_lens on the card: the reference
+    test's seeded draw (random lengths) or a split case's (given ones)."""
+    rng = np.random.RandomState(B * H if lens is None else B * H + page * npp)
+    P = npp * B + 4
+    dt = getattr(torch, dtype)
+    q, kp, vp = (torch.tensor(a, dtype=torch.float32, device="cuda").to(dt)
+                 for a in (rng.randn(B, H, dh), rng.randn(P, page, KV, dh),
+                           rng.randn(P, page, KV, dh)))
+    bt = torch.tensor(rng.choice(P, (B, npp), replace=False),
+                      dtype=torch.int32, device="cuda")
+    if lens is None:
+        lens = rng.randint(1, npp * page + 1, B)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, sl
+
+
+def paged_cases():
+    """Every check case of the paged kernel, as `paged_inputs`' arguments
+    after (torch, np): the sweep, PAGED_EDGES, PAGED_SPLIT_EDGES, in both
+    dtypes."""
+    return [case + (dtype,) + extra
+            for dtype in ("float32", "bfloat16")
+            for case, extra in ([(c, ()) for c in PAGED_SHAPES + PAGED_EDGES]
+                                + [(c[:6], (c[6],))
+                                   for c in PAGED_SPLIT_EDGES])]
+
+
+def paged_check(torch, np, fn, ref):
+    """`fn` against the plain version `ref` on every case of
+    `paged_cases`, at PAGED_TOL; returns each case's max |err|."""
+    errs = []
+    for case in paged_cases():
+        args = paged_inputs(torch, np, *case)
+        got = fn(*args).float()
+        want = ref(*args).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        errs.append(float(err.max()))
+        tol = PAGED_TOL[case[6]]
+        if bool((err > tol + tol * want.abs()).any()):
+            raise AssertionError(f"paged kernel != plain version {case}: "
+                                 f"max |err| {errs[-1]:.3g}")
+    return errs
+
+
+def pool_lens(np):
+    """The pool's prompt lengths: seeded, up to 2040, with 128, 1024 and
+    1920 among them (their first decode token opens a page)."""
+    page, steps = POOL["page"], POOL["steps"]
+    rng = np.random.RandomState(11)
+    lens = rng.randint(1, POOL["pages_per_seq"] * page - steps + 1,
+                       POOL["seqs"])
+    lens[:3] = (page, 8 * page, 15 * page)
+    return lens
+
+
 def paged_phase(torch, np, card):
     """Phase 11: the paged kernel against its plain version, then the
     paged pool's decode read at qwen3-4b's widths. Returns the kernel's
     entry of the JSON line."""
     from repro_torch.kernels.paged_attention import ops
-    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.kernel import (paged_attention,
+                                                            split_plan)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.memmgr import kv_cache as kvc
-    errs = []
-    for dtype in ("float32", "bfloat16"):
-        tol = PAGED_TOL[dtype]
-        for B, H, KV, dh, page, npp in PAGED_SHAPES + PAGED_EDGES:
-            rng = np.random.RandomState(B * H)     # the reference test's
-            P = npp * B + 4
-            dt = getattr(torch, dtype)
-            q, kp, vp = (torch.tensor(a, dtype=torch.float32,
-                                      device="cuda").to(dt)
-                         for a in (rng.randn(B, H, dh),
-                                   rng.randn(P, page, KV, dh),
-                                   rng.randn(P, page, KV, dh)))
-            bt = torch.tensor(rng.choice(P, (B, npp), replace=False),
-                              dtype=torch.int32, device="cuda")
-            sl = torch.tensor(rng.randint(1, npp * page + 1, B),
-                              dtype=torch.int32, device="cuda")
-            got = paged_attention(q, kp, vp, bt, sl).float()
-            want = paged_attention_ref(q, kp, vp, bt, sl).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            errs.append(float(err.max()))
-            if bool((err > tol + tol * want.abs()).any()):
-                raise AssertionError(f"paged kernel != plain version "
-                                     f"({B}, {H}, {KV}, {dh}, {page}, {npp})"
-                                     f" {dtype}: max |err| {errs[-1]:.3g}")
-    log(f"[paged] kernel == plain version on the reference's 6 sweep cases "
-        f"and {2 * len(PAGED_EDGES)} edge cases (G 16 and 12 at dh 128, dh "
-        f"96; atol = rtol = 2e-5 fp32, 3e-2 bf16; max |err| "
-        f"{max(errs):.3g}) [{card}]")
+    errs = paged_check(torch, np, paged_attention, paged_attention_ref)
+    log(f"[paged] kernel == plain version on {len(paged_cases())} checks: "
+        f"the reference's {len(PAGED_SHAPES)} sweep cases, "
+        f"{len(PAGED_EDGES)} edge cases (G 16 and 12 at dh 128, dh 96) and "
+        f"{len(PAGED_SPLIT_EDGES)} split cases (page 5 and 1, 1 to 64 pages "
+        f"per sequence, lengths at and one past a split boundary, length "
+        f"0, lengths 1 to 8192), each in fp32 and bf16 (atol = rtol = 2e-5 "
+        f"fp32, 3e-2 bf16; max |err| {max(errs):.3g}) [{card}]")
+    q, kp, vp, bt, sl = paged_inputs(torch, np, 3, 8, 2, 64, 16, 6,
+                                     "bfloat16")
+    flat = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    odd = flat[1:q.numel() + 1].view(q.shape).copy_(q)
+    try:
+        paged_attention(odd, kp, vp, bt, sl)
+    except ValueError as e:
+        log(f"[paged] a q 2 bytes off 16-byte alignment is refused: {e}")
+    else:
+        raise AssertionError("paged_attention took a misaligned q")
 
     L, page, KV, dh, H = (POOL[k] for k in ("n_layers", "page", "n_kv", "dh",
                                             "heads"))
@@ -982,10 +1047,7 @@ def paged_phase(torch, np, card):
                          pages_per_seq=pps)
     torch.cuda.reset_peak_memory_stats()
     pool = kvc.init(cfg, device="cuda")
-    rng = np.random.RandomState(11)
-    lens = rng.randint(1, pps * page - steps + 1, nseq)
-    lens[:3] = (page, 8 * page, 15 * page)   # 128, 1024, 1920: the first
-    # decode token opens a page
+    lens = pool_lens(np)
     for slot, ln in enumerate(lens):
         pool, ok = kvc.admit_seq(cfg, pool, slot, slot % POOL["asids"],
                                  int(ln))
@@ -1075,6 +1137,17 @@ def paged_phase(torch, np, card):
     layer = L - 1                       # one layer's launch, last step
     args = (q, pool.k[layer], pool.v[layer], table, seq_lens)
     run = lambda: paged_attention(*args)                  # noqa: E731
+    split_pages, n_splits = split_plan(page, pps)
+    live = int(((seq_lens + page * split_pages - 1)
+                // (page * split_pages)).sum()) * KV
+    if not torch.equal(run(), run()):
+        raise AssertionError("paged_attention differs between two runs")
+    log(f"[paged] split plan at the pool's shape: {split_pages} page(s) of "
+        f"{page} tokens per block, {n_splits} splits per (KV head, "
+        f"sequence); grid {n_splits} x {KV} x {nseq} = "
+        f"{n_splits * KV * nseq} blocks, {live} of them on live pages; "
+        f"then one combine block per (query head, sequence); two runs "
+        f"equal bit for bit")
     ms = time_events(torch, run, 20)
     launch_ms = time_host(torch, run, 10)
     plain_ms = time_events(torch, lambda: paged_attention_ref(*args), 3, 1)
@@ -1088,7 +1161,8 @@ def paged_phase(torch, np, card):
         else (by_ops, "operations")
     log(f"[paged] one layer's launch, B={nseq} H={H} KV={KV} dh={dh} page="
         f"{page}, {tokens} live tokens, bf16: kernel {ms:.4f} ms on the "
-        f"device, {launch_ms:.4f} ms per launch from Python; plain version "
+        f"device (split + combine, two CUDA launches per call), "
+        f"{launch_ms:.4f} ms per call from Python; plain version "
         f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes:.4g} B at 3.35 TB/s, {flops:.4g} flop) [{card}]")
     del pool, kc, vc, kg, vg

@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "scripts/torch_step_profile.py",
-    "scripts/torch_serve_profile.py", "scripts/torch_ssd_variants.py"] + sorted(
+    "scripts/torch_serve_profile.py", "scripts/torch_ssd_variants.py",
+    "scripts/torch_paged_variants.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "src/repro_torch").rglob("*.py")))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
