@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                the card, element for element (exact: integer outputs), at
                both main-path shapes, the reference kernel test's shapes
                and the write-collision case; at both main-path shapes the
-               kernel's device time (CUDA-graph replay), its time per
-               launch from Python, and the plain version's time;
+               kernel's device time (CUDA-graph replay) beside the floor
+               of one launch measured the same way (a captured `x.add_(1)`
+               on a one-element tensor), its time per launch from Python,
+               and the plain version's time;
   3. path   -- the simulator's main path, `run_mix(..., device="cuda")`,
                on all 9 float-hex goldens of the reference; the kernel's
                launch count must equal the fused rounds the runs made;
@@ -23,10 +25,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                (the `mask@9000` golden of phase 3);
   5. flash  -- the `flash_attention` kernels against their plain PyTorch
                version on the card, each check on the route its dtype
-               selects (bf16: the tensor-core kernel
-               `flash_attention_sm90.cu`; fp32: the SIMT kernel
-               `flash_attention.cu`; the route counts are checked): the
-               reference kernel test's 18 cases (atol = rtol = 2e-2 in
+               selects (bf16: the wgmma kernel `flash_attention_sm90.cu`;
+               fp32: the split-TF32 kernel `flash_attention.cu`; the route
+               counts are checked): the reference kernel test's 18
+               cases (atol = rtol = 2e-2 in
                bf16, 2e-5 in fp32), phase 7's ragged 496-token prefill
                shape, 11 edge cases on both routes (`FLASH_EDGES`: S =
                1000, 129, 77 and 1, windows across the tensor-core
@@ -39,7 +41,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                events), TFLOP/s and share of its bound, its time per
                launch from Python, the plain version's time, and
                `scaled_dot_product_attention`'s time as a yardstick; the
-               same times of the SIMT kernel at phase 7's fp32 shape;
+               same times of the split-TF32 kernel at phase 7's fp32 shape
+               (SDPA in fp32), with two bounds side by side: its
+               tensor-core products' (3 TF32 passes) and the CUDA cores'
+               fp32 bound of the SIMT kernel it replaced; the fp32
+               checks' largest share of 2e-5;
   6. serve  -- the model's serving path at full width: qwen3-4b (36
                layers) in bf16 with random weights from a seeded generator
                on the card, `attention_impl="pallas_flash"`; 4 prompts of
@@ -48,10 +54,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                flash launches == 36 per prefill, finite logits, cache_len
                2112 at the end; every flash launch on the wgmma route;
   7. match  -- the same model in fp32 (TF32 off for matmul and cuDNN):
-               `forward_prefill` of 2 x 496 tokens plus 16 `forward_decode`
-               steps against `forward_train` over the same 512 tokens
-               (logits within 2e-3 after prefill, 5e-3 in decode); the
-               72 flash launches (36 in each) all on the simt route;
+               `forward_prefill` of 2 x 496 tokens (its wall time logged)
+               plus 16 `forward_decode` steps against `forward_train`
+               over the same 512 tokens (logits within 2e-3 after
+               prefill, 5e-3 in decode); the 72 flash launches (36 in
+               each) all on the split_tf32 route;
   8. ssd    -- the `ssd_scan` kernel (`ssd_intra_chunk`) against its plain
                version on the card: the reference test's 3 cases, a
                ragged chunk of 248 rows and 4 edge cases of the kernel
@@ -219,7 +226,8 @@ FLASH_EDGES = [(1000, 4, 4, 128, True, None), (1000, 8, 2, 64, True, 300),
                (1, 2, 1, 64, True, None), (1000, 8, 2, 96, True, None),
                (129, 4, 4, 96, False, 60)]
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
-                 "simt": "src/repro_torch/csrc/flash_attention.cu"}
+                 "split_tf32": "src/repro_torch/csrc/flash_attention.cu"}
+TF32_PASSES = 3                      # split TF32: hi.hi + hi.lo + lo.hi
 # the serving path's flash call: qwen3-4b prefill of 4 x 2048 tokens
 SERVE_ARCH = "qwen3-4b"
 MAMBA_ARCH = "mamba2-1.3b"
@@ -369,20 +377,19 @@ def time_round(torch, fn, case, iters):
     return start.elapsed_time(end) / iters
 
 
-def time_round_graph(torch, fn, case, reps):
-    """Device ms per call: `reps` calls captured in one CUDA graph and
-    replayed, so no host launch overhead is counted."""
-    args, kw = on_card(torch, case)
+def time_graph(torch, fn, reps):
+    """Device ms per call: `reps` calls of `fn()` captured in one CUDA
+    graph and replayed, so no host launch overhead is counted."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            fn(*args, case["time"], **kw)
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn(*args, case["time"], **kw)
+            fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -393,6 +400,19 @@ def time_round_graph(torch, fn, case, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (5 * reps)
+
+
+def time_round_graph(torch, fn, case, reps):
+    """Device ms per round of `fn` on `case`, by `time_graph`."""
+    args, kw = on_card(torch, case)
+    return time_graph(torch, lambda: fn(*args, case["time"], **kw), reps)
+
+
+def launch_floor_graph(torch, reps):
+    """Device ms of the smallest launch, measured as `time_round_graph`
+    measures the round: a captured `x.add_(1)` on a one-element tensor."""
+    x = torch.zeros(1, device="cuda")
+    return time_graph(torch, lambda: x.add_(1), reps)
 
 
 def bound(np, case, out):
@@ -550,11 +570,13 @@ def zero_counts(kernel):
         kernel.route_launches[name] = 0
 
 
-def flash_timing(torch, np, kernel, q, k, v, flop_rate):
+def flash_timing(torch, np, kernel, q, k, v, flop_rate, passes=1):
     """The kernel's device time (CUDA events), its time per launch from
     Python, the plain version's time and `scaled_dot_product_attention`'s
     on causal q, k, v, with the bound: the larger of the visible pairs'
-    flop over `flop_rate` and q, k, v, o's bytes over the HBM rate."""
+    flop, times the `passes` each product takes, over `flop_rate` and q,
+    k, v, o's bytes over the HBM rate. `tflops` counts the visible pairs'
+    flop once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -575,39 +597,44 @@ def flash_timing(torch, np, kernel, q, k, v, flop_rate):
     library_ms = time_events(torch, lib, 20)
     flops = 4 * dh * B * H * visible_pairs(np, S, S, True, None)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    by_ops = flops / flop_rate * 1e3
+    by_ops = passes * flops / flop_rate * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes \
         else (by_bytes, "bytes")
     return dict(ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                flops=flops, nbytes=nbytes, tflops=flops / ms / 1e9,
-                bound_share=bound_ms / ms)
+                flops=flops, nbytes=nbytes, bytes_ms=by_bytes,
+                tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
 
 
 def flash_phase(torch, np, kernel, card):
     """Phase 5: the flash kernels against their plain version, each on the
-    route its dtype selects, and their times: the tensor-core kernel at the
-    serving shape, the SIMT kernel at phase 7's fp32 shape. Returns the two
-    entries of the JSON line (launches filled in by phases 6 and 7)."""
+    route its dtype selects, and their times: the wgmma kernel at the
+    serving shape, the split-TF32 kernel at phase 7's fp32 shape. Returns
+    the two entries of the JSON line (launches filled in by phases 6 and
+    7)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     errs = {"float32": [], "bfloat16": []}
-    for dtype, kind in (("float32", "simt"), ("bfloat16", "wgmma")):
+    shares = {"float32": [], "bfloat16": []}
+    for dtype, kind in (("float32", "split_tf32"), ("bfloat16", "wgmma")):
         zero_counts(kernel)
         for S, H, KV, dh, bq, bk in FLASH_SHAPES:
             q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + H)
             for causal, window in FLASH_MASKS:
-                errs[dtype].append(flash_compare(
+                err, share, _ = flash_compare(
                     torch, kernel, attention_ref, q, k, v, causal, window,
-                    FLASH_TOL[dtype], block_q=bq, block_k=bk)[0])
+                    FLASH_TOL[dtype], block_q=bq, block_k=bk)
+                errs[dtype].append(err)
+                shares[dtype].append(share)
         routed(kernel, kind, len(FLASH_SHAPES) * len(FLASH_MASKS),
                f"{dtype} sweep")
     log(f"[flash] kernel == plain version on the reference's "
         f"{sum(map(len, errs.values()))} sweep cases (max |err| "
-        f"{max(errs['float32']):.3g} fp32 on the simt route, "
+        f"{max(errs['float32']):.3g} fp32 on the split_tf32 route, largest "
+        f"share {max(shares['float32']):.3g} of tol 2e-5; "
         f"{max(errs['bfloat16']):.3g} bf16 on the wgmma route) [{card}]")
-    for dtype, kind in (("float32", "simt"), ("bfloat16", "wgmma")):
+    for dtype, kind in (("float32", "split_tf32"), ("bfloat16", "wgmma")):
         zero_counts(kernel)                   # phase 7's ragged prefill
         q, k, v = flash_inputs(torch, np, MATCH_PROMPT, 32, 8, 128, dtype, 1,
                                B=MATCH_B)
@@ -617,28 +644,32 @@ def flash_phase(torch, np, kernel, card):
             FLASH_TOL[dtype], bf16)
         routed(kernel, kind, 1, f"B={MATCH_B} S={MATCH_PROMPT} {dtype}")
         errs[dtype].append(err)
+        shares[dtype].append(share)
         log(f"[flash] B={MATCH_B} S={MATCH_PROMPT} causal {dtype} ({kind}): "
             f"max |err| {err:.3g}, {share:.3g}x "
             f"{'the rounding bound' if bf16 else 'tol'}; median |o| "
             f"{typical:.3g}")
-    shares = {}
-    for dtype, kind in (("float32", "simt"), ("bfloat16", "wgmma")):
+    edge_shares = {}
+    for dtype, kind in (("float32", "split_tf32"), ("bfloat16", "wgmma")):
         zero_counts(kernel)
         bf16 = dtype == "bfloat16"
-        shares[dtype] = []
+        edge_shares[dtype] = []
         for S, H, KV, dh, causal, window in FLASH_EDGES:
             q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + dh)
             err, share, _ = flash_compare(
                 torch, kernel, attention_ref, q, k, v, causal, window,
                 FLASH_TOL[dtype], rounding=bf16, block_q=S, block_k=S)
             errs[dtype].append(err)
-            shares[dtype].append(share)
+            edge_shares[dtype].append(share)
+        shares[dtype] += edge_shares[dtype]
         routed(kernel, kind, len(FLASH_EDGES), f"{dtype} edge cases")
     log(f"[flash] kernels == plain version on {len(FLASH_EDGES)} edge cases "
         f"each (ragged S, windows across tile edges, non-causal, G 1 to 8, "
         f"dh 32/64/96/128): wgmma within the rounding bound (largest share "
-        f"{max(shares['bfloat16']):.3g}), simt within tol 2e-5 (largest "
-        f"share {max(shares['float32']):.3g}) [{card}]")
+        f"{max(edge_shares['bfloat16']):.3g}), split_tf32 within tol 2e-5 "
+        f"(largest share {max(edge_shares['float32']):.3g}); fp32 over the "
+        f"sweep, the ragged prefill and the edges: largest share "
+        f"{max(shares['float32']):.3g} of 2e-5 [{card}]")
 
     B, S, H, KV, dh = SERVE_B, SERVE_S, 32, 8, 128
     q, k, v = flash_inputs(torch, np, S, H, KV, dh, "bfloat16", 0, B=B)
@@ -662,22 +693,29 @@ def flash_phase(torch, np, kernel, card):
     del q, k, v
     q, k, v = flash_inputs(torch, np, MATCH_PROMPT, 32, 8, 128, "float32", 1,
                            B=MATCH_B)
-    fp = flash_timing(torch, np, kernel, q, k, v, CUDA_CORE_OPS_PER_S)
+    fp = flash_timing(torch, np, kernel, q, k, v, TF32_TENSOR_FLOPS,
+                      TF32_PASSES)
+    fp["bound_cuda_core_ms"] = fp["flops"] / CUDA_CORE_OPS_PER_S * 1e3
     log(f"[flash] B={MATCH_B} S={MATCH_PROMPT} H=32 KV=8 dh=128 causal fp32 "
-        f"(simt route, {FLASH_SOURCES['simt']}): kernel {fp['ms']:.4f} ms "
-        f"on the device ({fp['tflops']:.2f} TFLOP/s, "
-        f"{fp['bound_share']:.3f} of the bound), {fp['launch_ms']:.4f} ms "
-        f"per launch from Python; plain version {fp['plain_ms']:.3f} ms; "
-        f"scaled_dot_product_attention {fp['library_ms']:.4f} ms; bound "
-        f"{fp['bound_ms']:.4f} ms by {fp['bound_by']} ({fp['flops']:.4g} "
-        f"flop at the CUDA cores' fp32 rate, {fp['nbytes']:.4g} B) [{card}]")
+        f"(split_tf32 route, {FLASH_SOURCES['split_tf32']}): kernel "
+        f"{fp['ms']:.4f} ms on the device ({fp['tflops']:.2f} TFLOP/s of "
+        f"attention, {fp['bound_share']:.3f} of the bound), "
+        f"{fp['launch_ms']:.4f} ms per launch from Python; plain version "
+        f"{fp['plain_ms']:.3f} ms; scaled_dot_product_attention in fp32 "
+        f"{fp['library_ms']:.4f} ms; bounds side by side: split-TF32 "
+        f"products {fp['bound_ms']:.4f} ms by {fp['bound_by']} "
+        f"({TF32_PASSES} x {fp['flops']:.4g} flop at the TF32 tensor cores' "
+        f"495 TFLOP/s), the SIMT kernel's CUDA-core fp32 bound "
+        f"{fp['bound_cuda_core_ms']:.4f} ms ({fp['flops']:.4g} flop at 67 "
+        f"TFLOP/s); bytes {fp['nbytes']:.4g} B, {fp['bytes_ms']:.4f} ms "
+        f"[{card}]")
     del q, k, v
     torch.cuda.empty_cache()
     entries = []
     for name, kind, dtype, t, shape in (
             ("flash_attention", "wgmma", "bfloat16", tc,
              {"B": B, "S": S, "H": H, "KV": KV, "dh": dh}),
-            ("flash_attention_fp32", "simt", "float32", fp,
+            ("flash_attention_fp32", "split_tf32", "float32", fp,
              {"B": MATCH_B, "S": MATCH_PROMPT, "H": 32, "KV": 8, "dh": 128})):
         entries.append({
             "name": name, "route": "cuda", "kernel": kind,
@@ -774,9 +812,13 @@ def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match"):
     tokens = torch.tensor(rng.randint(0, cfg.vocab_size, (MATCH_B, MATCH_S)),
                           dtype=torch.int32, device="cuda")
     full, _ = model.forward_train(cfg, run, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     logits, caches = model.forward_prefill(
         cfg, run, params, {"tokens": tokens[:, :MATCH_PROMPT]},
         max_len=MATCH_S)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
     finite(torch, full, "forward_train")
     err_prefill = float((logits[:, -1] - full[:, MATCH_PROMPT - 1]).abs()
                         .max())
@@ -791,7 +833,8 @@ def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match"):
         f"tokens + {MATCH_S - MATCH_PROMPT} decode steps vs forward_train "
         f"over {MATCH_S}: max |err| {err_prefill:.3g} (prefill, tol "
         f"{MATCH_TOL_PREFILL}), {err_decode:.3g} (decode, tol "
-        f"{MATCH_TOL_DECODE}); max |logit| {scale:.3g} [{card}]")
+        f"{MATCH_TOL_DECODE}); max |logit| {scale:.3g}; the prefill "
+        f"{prefill_ms:.2f} ms (one call, after forward_train) [{card}]")
     if not (err_prefill < MATCH_TOL_PREFILL and err_decode < MATCH_TOL_DECODE):
         raise AssertionError(f"{cfg.name}: prefill + decode != "
                              "forward_train")
@@ -1229,6 +1272,7 @@ def main():
     for label, shape in (("L2", L2_SHAPE), ("PWC", PWC_SHAPE)):
         case = path_case(np, *shape, "half", seed=1)
         ms = time_round_graph(torch, fused_tlb_round, case, 200)
+        floor = launch_floor_graph(torch, 200)
         launch = time_round(torch, fused_tlb_round, case, 500)
         plain = time_round(torch, fused_tlb_access_ref, case, 50)
         args, kw = on_card(torch, case)
@@ -1236,13 +1280,16 @@ def main():
         least, bound_by = bound(np, case, [t.cpu().numpy() for t in out])
         timings.append(dict(round=label, sets=shape[0], ways=shape[1],
                             lanes=shape[2], waves=shape[3], ms=ms,
-                            launch_ms=launch, plain_ms=plain,
-                            bound_ms=least, bound_by=bound_by))
+                            launch_floor_ms=floor, launch_ms=launch,
+                            plain_ms=plain, bound_ms=least,
+                            bound_by=bound_by))
         log(f"[kernel] {label} round {shape[0]}x{shape[1]}, N={shape[2]}, "
             f"W={shape[3]}: kernel {ms * 1e3:.2f} us on the device (graph "
-            f"replay), {launch * 1e3:.2f} us per launch from Python; plain "
-            f"version {plain * 1e3:.2f} us per call; bound "
-            f"{least * 1e3:.4f} us by {bound_by} [{card}]")
+            f"replay) beside a launch floor of {floor * 1e3:.2f} us (a "
+            f"captured x.add_(1) on one element, replayed the same way), "
+            f"{launch * 1e3:.2f} us per launch from Python; plain version "
+            f"{plain * 1e3:.2f} us per call; bound {least * 1e3:.4f} us by "
+            f"{bound_by} [{card}]")
 
     # ---- 3. the main path on the card: all goldens ----------------------
     fused_tlb_round.launches = 0
@@ -1298,11 +1345,12 @@ def main():
         f"prefills, all on the wgmma route")
     zero_counts(flash_attention_bhsd)
     match_phase(torch, np, card)
-    flash_fp32["launches"] = flash_attention_bhsd.route_launches["simt"]
-    routed(flash_attention_bhsd, "simt", n_attn * 2,
+    flash_fp32["launches"] = \
+        flash_attention_bhsd.route_launches["split_tf32"]
+    routed(flash_attention_bhsd, "split_tf32", n_attn * 2,
            f"fp32 forward_train + forward_prefill of {n_attn} layers")
     log(f"[match] flash launches {flash_fp32['launches']} == {n_attn} x 2 "
-        f"(forward_train, forward_prefill), all on the simt route")
+        f"(forward_train, forward_prefill), all on the split_tf32 route")
 
     # ---- 8-10. the Mamba2 serving path and its kernel -------------------
     ssd = ssd_phase(torch, np, card)
@@ -1326,7 +1374,8 @@ def main():
         "source": "src/repro_torch/csrc/fused_tlb.cu",
         "replaces": "src/repro/kernels/fused_tlb/kernel.py:44",
         "launches": launches, "max_abs_err": max_err,
-        "ms": l2["ms"], "launch_ms": l2["launch_ms"],
+        "ms": l2["ms"], "launch_floor_ms": l2["launch_floor_ms"],
+        "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
         "library_ms": None, "shapes": timings}, flash, flash_fp32, ssd,

@@ -1,46 +1,84 @@
 // Forward flash attention in float32 (causal or bidirectional, optional
-// sliding window, grouped-query heads), for Hopper (sm_90a).
+// sliding window, grouped-query heads), for Hopper (sm_90a), on the tensor
+// cores in split TF32.
 //
 // Replaces the TPU kernel `src/repro/kernels/flash_attention/kernel.py::_kernel`
 // (wrapper `flash_attention_bhsd`) for float32 inputs; bfloat16 inputs go
-// to the tensor-core kernel of `flash_attention_sm90.cu`. Its float32 FMAs
-// keep the reference's 2e-5 tolerance, which TF32 tensor cores would miss.
-// The model calls it once per attention layer on its full-sequence path
-// (`models/lm.py::_self_attention_full`, so in `forward_prefill` and
-// `forward_train`) when `RunConfig.attention_impl == "pallas_flash"`.
+// to the kernel of `flash_attention_sm90.cu`. The model calls it once per
+// attention layer on its full-sequence path (`models/lm.py::
+// _self_attention_full`, so in `forward_prefill` and `forward_train`) when
+// `RunConfig.attention_impl == "pallas_flash"`.
 //
 // What it computes, exactly as the TPU kernel does: for query head h (KV
 // head h / G), an online softmax over key tiles with running (m, l, acc)
-// in float32; s = (q . k) * scale in float32; masked scores are the FINITE
-// value -1e30 (a row whose first visited tile is fully masked takes p = 1
-// there, and the next tile's correction exp(-1e30 - m) = 0 wipes it, where
-// -inf would give NaN); p stays float32, as v is; the output is
+// in float32; s = (q . k) * scale; masked scores are the FINITE value
+// -1e30 (a row whose first visited tile is fully masked takes p = 1 there,
+// and the next tile's correction exp(-1e30 - m) = 0 wipes it, where -inf
+// would give NaN); p stays float32, as v is; the output is
 // acc / max(l, 1e-30). Tiles that causality or the window masks completely
-// are skipped. Positions count from 0 in both q and k.
+// are skipped. Positions count from 0 in both q and k. Keys past Sk get
+// -inf, so p = 0.
 //
-// What bounds it: operations at the CUDA cores' float32 rate (67 TFLOP/s):
-// at the fp32 match shape (qwen3-4b, 2 x 496 tokens, 32 heads of 128) the
-// two products need ~2.0e10 flop against ~33 MB of q/k/v/o. It is a plain
-// SIMT kernel, chosen to be right first. One thread block of
-// 256 threads per (q tile of 64 rows, head, batch); q, k and v tiles are
-// staged in shared memory (k/q rows padded by one word so the
-// column walk of q.k^T is free of bank conflicts); each thread keeps a 4 x 4
-// block of the score tile and a 4 x (dh/16) block of the accumulator in
-// registers. One warp per 8 rows does the softmax with shuffles.
+// What bounds it: operations. At the fp32 match shape (qwen3-4b, 2 x 496
+// tokens, 32 heads of 128, 8 KV heads, causal) the two products need
+// 4.039e9 flop on the visible (q, k) pairs, against 40.6 MB of q, k, v
+// and o (0.0121 ms at 3.35 TB/s). On the CUDA cores' 67 TFLOP/s (the SIMT
+// kernel this one replaced) that is 0.0603 ms. Here each product is three
+// TF32 tensor-core passes (split TF32, below): 1.21e10 flop at 495 TFLOP/s,
+// 0.0245 ms. mma.sync runs below that rate, and the CUDA-core work around
+// each mma (the operands' splits, the fragment loads, the softmax's exps)
+// issues several instructions per mma.
+//
+// The design:
+//  * One block of 4 warps per (q tile of 64 rows, head, batch); each warp
+//    owns 16 query rows. The grid's slowest axis walks the q tiles from
+//    the last, so the causal rows with the most keys start first.
+//  * Both products run on mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 in
+//    split TF32: each operand a = a_hi + a_lo with a_hi = tf32(a),
+//    a_lo = tf32(a - a_hi), rounded as cvt.rna.tf32.f32 rounds (two integer
+//    operations, the same bits), and a.b = a_lo.b_hi + a_hi.b_lo +
+//    a_hi.b_hi accumulated in float32. The dropped terms are ~3 2^-22
+//    |a||b|; plain TF32 (hi.hi alone) would miss the reference's 2e-5.
+//    Each pass runs over all of a step's tiles before the next, so no mma
+//    waits on the one before it for its accumulator. q's fragments stay in
+//    registers as float32 (64 registers at dh 128; its halves would take
+//    128) and are split once per key tile; k, p and v are split as their
+//    fragments are loaded.
+//  * s = q.k^T: the warp's 16 x 32 score tile is 4 n-tiles of 8 keys. The
+//    head dim is permuted in both operands, so that a thread's values of
+//    two k-steps (16 columns) are 4 adjacent floats: one 16-byte load for
+//    q (from device memory, once) and for k (from shared memory) each.
+//  * The online softmax runs on the score fragments in registers: row max
+//    by quad shuffles, exps in float32, each thread keeping its own part of
+//    l (the quad's parts are summed at the end), the accumulator rescaled
+//    in registers. Nothing of s or p goes through shared memory.
+//  * acc += p.v: the score fragment is p.v's A fragment once the k index of
+//    each 8-key step is permuted (slot t <-> key 2t, slot t + 4 <-> key
+//    2t + 1) in both operands; the output columns are permuted so that a
+//    thread's v values of 4 n-tiles are one 16-byte load, and its output
+//    values of a row are 8 adjacent floats (two 16-byte stores).
+//  * K and V tiles of 32 keys come by 16-byte cp.async through a 2-stage
+//    shared-memory ring, the next tile's copy under the current tile's
+//    products; rows past Sk are zero-filled (src-size 0). Row pitches of
+//    dh + 16 (k) and dh + 4 (v) floats keep the fragment loads free of
+//    bank conflicts. 70.7 KB a block at dh 128.
 //
 // Layout: q, k, v, o are read and written through (batch, head, position)
 // strides with a contiguous head dimension, so the model's (B, S, H, dh)
-// tensors are used in place. Ragged edges (lengths not a multiple of 64)
-// are handled: q rows past Sq are not stored, keys past Sk get p = 0.
+// tensors are used in place. Addresses and strides are multiples of 16
+// bytes (the wrapper checks). Ragged edges (lengths not a multiple of the
+// tiles) are handled: q rows past Sq are read as zero and not stored.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 score block each
+constexpr int BQ = 64;              // query rows per block
+constexpr int BK = 32;              // keys per tile
+constexpr int WARPS = BQ / 16;      // 16 query rows a warp
+constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
@@ -48,167 +86,293 @@ struct Strides {
 };
 
 template <int DH>
-constexpr size_t smem_floats() {
-  return size_t(BQ) * (DH + 1)      // q tile, padded
-         + size_t(BK) * (DH + 1)    // k tile, padded
-         + size_t(BK) * DH          // v tile
-         + size_t(BQ) * (BK + 1)    // scores, then p
-         + 3 * size_t(BQ);          // m, l, correction
+struct Tile {
+  static constexpr int KP = DH + 16;   // k row pitch: 16 mod 32 floats
+  static constexpr int VP = DH + 4;    // v row pitch: 4 mod 32 floats
+  static constexpr int STAGE = BK * (KP + VP);
+  static constexpr size_t SMEM = sizeof(float) * 2 * STAGE;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+// cvt.rna.tf32.f32's rounding (to nearest, ties away; the low 13 bits
+// cleared) on the int32 view: the same bits in two integer operations
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = tf32(x);
+  return {hi, tf32(x - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the A fragment (rows g, g + 8; k slots t, t + 4) of four float32 values
+// in the register order of mma: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3) {
+    const float v[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Split s = split(v[i]);
+      hi[i] = s.hi;
+      lo[i] = s.lo;
+    }
+  }
+};
+
+// d[j] += a . b[j] in split TF32, the small cross terms first; b[j] is the
+// B fragment (b0[j], b1[j]). Each pass runs over every tile before the
+// next, so no mma waits on the one before it for its accumulator.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const FragA& a,
+                                     const Split (&b0)[N],
+                                     const Split (&b1)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], a.lo, b0[j].hi, b1[j].hi);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], a.hi, b0[j].lo, b1[j].lo);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], a.hi, b0[j].hi, b1[j].hi);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int G,
-                 int Sq,
-                 int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int has_window, int window, float scale) {
-  constexpr int QP = DH + 1;
-  constexpr int SP = BK + 1;
-  constexpr int NC = DH / 16;      // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * QP;
-  float* Vs = Ks + BK * QP;
-  float* Ss = Vs + BK * DH;
-  float* m_s = Ss + BQ * SP;
-  float* l_s = m_s + BQ;
-  float* c_s = l_s + BQ;
+                 int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                 Strides os, int causal, int has_window, int window,
+                 float scale) {
+  using T = Tile<DH>;
+  constexpr int NP = DH / 16;      // k-step pairs of q.k^T (16 columns)
+  constexpr int NS = BK / 8;       // n-tiles of s = k-steps of p.v
+  constexpr int NC = DH / 32;      // output column groups (4 n-tiles each)
+  constexpr int CPR = DH / 4;      // 16-byte chunks of a k or v row
+  extern __shared__ __align__(16) float smem[];
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q_start = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;          // mma fragment coordinates
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q_start = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int kvh = h / G;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + kvh * ks.h;
   const float* vb = v + b * vs.b + kvh * vs.h;
   float* ob = o + b * os.b + h * os.h;
+  const int r0 = q_start + warp * 16 + g, r1 = r0 + 8;   // this thread's rows
 
-  for (int i = tid; i < BQ * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH, qi = q_start + r;
-    Qs[r * QP + d] = qi < Sq ? qb[qi * qs.s + d] : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[4][NC];
+  // q: rows r0, r1, columns 16p + 4t .. 16p + 4t + 3; the first two are
+  // k-step 2p's slots t and t + 4, the last two k-step 2p + 1's
+  float4 qf[NP][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+  for (int p = 0; p < NP; ++p) {
+    const int c = 16 * p + 4 * t;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    qf[p][0] = r0 < Sq ? *reinterpret_cast<const float4*>(qb + r0 * qs.s + c)
+                       : zero;
+    qf[p][1] = r1 < Sq ? *reinterpret_cast<const float4*>(qb + r1 * qs.s + c)
+                       : zero;
+  }
 
+  // the visible key tiles, as the TPU kernel decides for its own tiles
   const int nk = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k_start = kt * BK;
-    // tile visibility, as the TPU kernel decides it for its own tiles
-    if (causal && k_start > q_start + BQ - 1) break;
-    if (has_window && !(k_start + BK - 1 > q_start - window)) continue;
+  const int kt_end = causal ? min(nk, (q_start + BQ - 1) / BK + 1) : nk;
+  int kt_begin = 0;
+  if (has_window) {
+    const int lo = q_start - window + 1;          // first row's first key
+    kt_begin = lo > 0 ? lo / BK : 0;
+  }
 
-    __syncthreads();   // the previous tile's k, v and p are consumed
-    for (int i = tid; i < BK * DH; i += THREADS) {
-      const int r = i / DH, d = i % DH, ki = k_start + r;
-      const bool in = ki < Sk;
-      Ks[r * QP + d] = in ? kb[ki * ks.s + d] : 0.f;
-      Vs[r * DH + d] = in ? vb[ki * vs.s + d] : 0.f;
+  auto load = [&](int kt, int stage) {
+    float* Ks = smem + stage * T::STAGE;
+    float* Vs = Ks + BK * T::KP;
+    const int k0 = kt * BK;
+    for (int c = tid; c < BK * CPR; c += THREADS) {
+      const int r = c / CPR, col = (c % CPR) * 4;
+      const bool in = k0 + r < Sk;
+      const long long kr = in ? k0 + r : 0;     // src-size 0 reads nothing
+      cp_async16(Ks + r * T::KP + col, kb + kr * ks.s + col, in);
+      cp_async16(Vs + r * T::VP + col, vb + kr * vs.s + col, in);
     }
-    __syncthreads();
+  };
 
-    // s = q . k^T for rows ty*4+i, columns tx+16*j
-    float s[4][4];
+  // acc[c][j], n-tile 4c + j, holds output columns 32c + 4n + j (n the B
+  // fragment's column): a thread's c0/c1 are columns 32c + 8t + j and
+  // 32c + 8t + 4 + j of row r0, c2/c3 the same of row r1
+  float acc[NC][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float a[4], c[4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * QP + d];
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;           // this thread's part of their sums
+
+  if (kt_begin < kt_end) load(kt_begin, 0);
+  cp_commit();
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load(kt + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();                  // tile kt has landed for every thread
+    const float* Ks = smem + stage * T::STAGE;
+    const float* Vs = Ks + BK * T::KP;
+
+    // ---- s = q . k^T: 16 rows x 32 keys, key 8n + g of n-tile n ------
+    float s[NS][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * QP + d];
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    for (int p = 0; p < NP; ++p) {
+      const float4 x = qf[p][0], y = qf[p][1];
+      float4 kk[NS];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        kk[n] = *reinterpret_cast<const float4*>(
+            Ks + (8 * n + g) * T::KP + 16 * p + 4 * t);
+      Split b0[NS], b1[NS];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {            // k-step 2p
+        b0[n] = split(kk[n].x);
+        b1[n] = split(kk[n].y);
+      }
+      mma3(s, FragA(x.x, y.x, x.y, y.y), b0, b1);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {            // k-step 2p + 1
+        b0[n] = split(kk[n].z);
+        b1[n] = split(kk[n].w);
+      }
+      mma3(s, FragA(x.z, y.z, x.w, y.w), b0, b1);
     }
+
+    // ---- scale, mask, online softmax on the fragments ----------------
+    const int k0 = kt * BK;
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, qpos = q_start + r;
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1;
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        bool vis = true;
+        if (causal) vis = key <= row;
+        if (has_window) vis = vis && key > row - window;
+        // keys past Sk do not exist: -inf gives them p = 0 below
+        const float x = key >= Sk ? -INFINITY
+                                  : (vis ? s[n][e] * scale : NEG_INF);
+        s[n][e] = x;
+        if (e < 2)
+          mx0 = fmaxf(mx0, x);
+        else
+          mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {     // the quad holds the row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);   // >= -1e30
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = expf(s[n][0] - m0);
+      s[n][1] = expf(s[n][1] - m0);
+      s[n][2] = expf(s[n][2] - m1);
+      s[n][3] = expf(s[n][3] - m1);
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, kpos = k_start + c;
-        bool vis = true;
-        if (causal) vis = kpos <= qpos;
-        if (has_window) vis = vis && kpos > qpos - window;
-        // keys past Sk do not exist: -inf gives them p = 0 below
-        Ss[r * SP + c] = kpos >= Sk ? -INFINITY
-                                    : (vis ? s[i][j] * scale : NEG_INF);
+        acc[c][j][0] *= c0;
+        acc[c][j][1] *= c0;
+        acc[c][j][2] *= c1;
+        acc[c][j][3] *= c1;
       }
-    }
-    __syncthreads();
 
-    // online softmax, one warp per 8 rows, two columns per lane
+    // ---- acc += p . v: k-step j is n-tile j of s (slot t <-> key 2t) -
 #pragma unroll
-    for (int rr = 0; rr < BQ / 8; ++rr) {
-      const int r = warp * (BQ / 8) + rr;
-      const float x0 = Ss[r * SP + lane], x1 = Ss[r * SP + lane + 32];
-      float mx = fmaxf(x0, x1);
+    for (int j = 0; j < NS; ++j) {
+      const FragA a(s[j][0], s[j][2], s[j][1], s[j][3]);
+      const float* v0 = Vs + (8 * j + 2 * t) * T::VP + 4 * g;
+      const float* v1 = v0 + T::VP;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);     // >= -1e30, never -inf
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      Ss[r * SP + lane] = p0;
-      Ss[r * SP + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
+      for (int c = 0; c < NC; ++c) {
+        const float4 x = *reinterpret_cast<const float4*>(v0 + 32 * c);
+        const float4 y = *reinterpret_cast<const float4*>(v1 + 32 * c);
+        const Split b0[4] = {split(x.x), split(x.y), split(x.z), split(x.w)};
+        const Split b1[4] = {split(y.x), split(y.y), split(y.z), split(y.w)};
+        mma3(acc[c], a, b0, b1);
       }
     }
-    __syncthreads();
-
-    // acc = acc * corr + p . v for rows ty*4+i, columns tx+16*j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty * 4 + i) * SP + kk];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float vv = Vs[kk * DH + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
+    __syncthreads();                  // the stage is read before its refill
   }
-  __syncthreads();   // l_s is final
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, qi = q_start + r;
-    if (qi >= Sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      ob[qi * os.s + tx + 16 * j] = acc[i][j] / l;
+  for (int c = 0; c < NC; ++c) {
+    const float(&a)[4][4] = acc[c];
+    const int col = 32 * c + 8 * t;
+    if (r0 < Sq) {
+      float* dst = ob + r0 * os.s + col;
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          a[0][0] / l0, a[1][0] / l0, a[2][0] / l0, a[3][0] / l0);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(
+          a[0][1] / l0, a[1][1] / l0, a[2][1] / l0, a[3][1] / l0);
+    }
+    if (r1 < Sq) {
+      float* dst = ob + r1 * os.s + col;
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          a[0][2] / l1, a[1][2] / l1, a[2][2] / l1, a[3][2] / l1);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(
+          a[0][3] / l1, a[1][3] / l1, a[2][3] / l1, a[3][3] / l1);
+    }
   }
 }
 
@@ -217,17 +381,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
            Strides os, int causal, int has_window, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
+  // set on every launch: the attribute is per device, and cheap next to
+  // the kernel
+  const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      int(Tile<DH>::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DH><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<DH><<<grid, THREADS, Tile<DH>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H / KV, Sq, Sk,
-      qs, ks,
-      vs, os, causal, has_window, window, scale);
+      qs, ks, vs, os, causal, has_window, window, scale);
   return int(cudaGetLastError());
 }
 
@@ -256,8 +420,9 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (B, H, Sq, dh), k/v: (B, KV, Sk, dh), o like q, each addressed through
-// its (b, h, s) strides in elements with a contiguous head dim, float32.
-// Returns a cudaError_t (0 = launched).
+// its (b, h, s) strides in elements with a contiguous head dim, float32;
+// addresses and strides multiples of 16 bytes. Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int Sq, int Sk, int dh, long long qsb, long long qsh,
@@ -266,7 +431,7 @@ extern "C" int flash_attention_fwd(
     long long osh, long long oss, int causal, int has_window, int window,
     float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || B > 65535 ||
-      H > 65535)
+      (Sq + BQ - 1) / BQ > 65535)
     return int(cudaErrorInvalidValue);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};

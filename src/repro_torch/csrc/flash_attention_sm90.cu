@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel `src/repro/kernels/flash_attention/kernel.py::_kernel`
 // (wrapper `flash_attention_bhsd`) for bfloat16 inputs. float32 inputs go to
-// the SIMT kernel of `flash_attention.cu`: TF32 tensor cores would miss the
+// the split-TF32 kernel of `flash_attention.cu`: plain TF32 would miss the
 // float32 tolerance. The model calls it once per attention layer on its
 // full-sequence path (`models/lm.py::_self_attention_full`, so in
 // `forward_prefill` and `forward_train`) when

@@ -2,18 +2,20 @@
 
 The dtype alone picks the kernel (`route`): bfloat16 goes to the
 tensor-core kernel (`csrc/flash_attention_sm90.cu`: wgmma, TMA, a ring of
-K/V tiles), float32 to the SIMT kernel (`csrc/flash_attention.cu`), whose
-float32 products keep the reference's 2e-5 tolerance. Nothing catches one
-kernel's failure and runs the other: a refused launch raises.
+K/V tiles), float32 to the split-TF32 kernel (`csrc/flash_attention.cu`:
+mma.sync, each product as three TF32 passes, which keep the reference's
+2e-5 tolerance). Nothing catches one kernel's failure and runs the other:
+a refused launch raises.
 
 `flash_attention_bhsd` checks its tensors, allocates the output with
 `torch.empty_like(q)` (so it keeps q's memory layout), launches the kernel
 on the current stream and raises if the launch failed. It does not
 synchronise. q, k and v may be strided views, as long as the head
 dimension is contiguous: the model passes (B, S, H, dh) tensors with axes
-1 and 2 swapped, and the kernels read them in place, with no copy. The
-tensor-core kernel reads through TMA, which needs 16-byte aligned base
-addresses and strides (`tma_strides`); the model's tensors always qualify.
+1 and 2 swapped, and the kernels read them in place, with no copy. Both
+kernels read 16-byte pieces (TMA in bf16, cp.async and vector loads in
+fp32), which need 16-byte aligned base addresses and strides
+(`tma_strides`); the model's tensors always qualify.
 `flash_attention_bhsd.launches` counts every launch, and
 `flash_attention_bhsd.route_launches[route]` those of each kernel, so a run
 can show which kernel it went through.
@@ -29,9 +31,9 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 96, 128)    # head dims both kernels take
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
-SOURCES = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
-TMA_ALIGN = 16                   # bytes: TMA's rule for addresses, strides
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "split_tf32"}
+SOURCES = {"wgmma": "flash_attention_sm90", "split_tf32": "flash_attention"}
+TMA_ALIGN = 16                   # bytes: both kernels' addresses, strides
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,7 +49,7 @@ def _entry(route_name: str):
 
 def route(dtype) -> str:
     """The kernel that takes q, k, v of `dtype` on the card: "wgmma" (the
-    tensor-core kernel) for bfloat16, "simt" for float32."""
+    tensor-core kernel) for bfloat16, "split_tf32" for float32."""
     if dtype not in ROUTES:
         raise ValueError(f"flash_attention: {dtype} is not one of "
                          f"{list(ROUTES)}")
@@ -56,14 +58,15 @@ def route(dtype) -> str:
 
 def tma_strides(t, name: str):
     """The (b, h, s) strides of `t`, in elements, as the tensor-core
-    kernel's tensor map describes them. Raises ValueError, naming the
-    tensor, unless its address and the strides of its dims longer than 1
-    are multiples of 16 bytes. A dim of length 1 is never stepped over, so
-    its stride is replaced by the head dim's length."""
+    kernel's tensor map describes them (the fp32 kernel takes the same).
+    Raises ValueError, naming the tensor, unless its address and the
+    strides of its dims longer than 1 are multiples of 16 bytes, which TMA
+    and the fp32 kernel's 16-byte copies need. A dim of length 1 is never
+    stepped over, so its stride is replaced by the head dim's length."""
     nbytes = t.element_size()
     if t.data_ptr() % TMA_ALIGN:
         raise ValueError(f"flash_attention: {name}'s address is not "
-                         f"{TMA_ALIGN}-byte aligned (TMA needs it)")
+                         f"{TMA_ALIGN}-byte aligned (16-byte loads need it)")
     out = []
     for dim in range(3):
         stride = t.stride(dim)
@@ -72,7 +75,7 @@ def tma_strides(t, name: str):
         elif stride <= 0 or stride * nbytes % TMA_ALIGN:
             raise ValueError(f"flash_attention: {name}'s stride {stride} of "
                              f"dim {dim} is not a positive multiple of "
-                             f"{TMA_ALIGN} bytes (TMA needs it)")
+                             f"{TMA_ALIGN} bytes (16-byte loads need it)")
         out.append(stride)
     return out
 
@@ -94,7 +97,8 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
     q: (B, H, Sq, dh); k, v: (B, KV, Sk, dh) -> (B, H, Sq, dh), float32 or
     bfloat16, dh in HEAD_DIMS, H a multiple of KV. `block_q`/`block_k`
     only set the accepted shapes (`check_tiling`); the kernels tile by 128
-    (wgmma) or 64 (simt). Every check runs before any build or launch."""
+    (wgmma) or 64 (split_tf32). Every check runs before any build or
+    launch."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
@@ -117,11 +121,8 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
                              "contiguous")
     check_tiling(Sq, Sk, block_q, block_k)
     kind = route(q.dtype)
-    if kind == "wgmma":
-        strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"))
-                   for s in tma_strides(t, name)]
-    else:
-        strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+    strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"))
+               for s in tma_strides(t, name)]
     if dev.type != "cuda" or dev.index != torch.cuda.current_device():
         raise ValueError(f"flash_attention kernel needs tensors on the "
                          f"current CUDA device, got {dev}")

@@ -1,13 +1,13 @@
 """Public flash attention op in the model's (B, S, H, dh) layout.
 
 A CPU tensor goes to the plain PyTorch version (`ref.py`); any other
-device goes to the CUDA kernels (`kernel.py`: bf16 to the tensor-core
-kernel, fp32 to the SIMT kernel), which launch or raise. Nothing falls
+device goes to the CUDA kernels (`kernel.py`: bf16 to the wgmma kernel,
+fp32 to the split-TF32 kernel), which launch or raise. Nothing falls
 back from one to another. Both devices hold sequence lengths to the same
 tiling (`kernel.check_tiling`). The CPU route takes any head dim; on the
 card both kernels take a head dim in `kernel.HEAD_DIMS` (32, 64, 96, 128)
-and raise ValueError on any other; the bf16 kernel also needs 16-byte
-aligned addresses and strides (`kernel.tma_strides`).
+and raise ValueError on any other; both also need 16-byte aligned
+addresses and strides (`kernel.tma_strides`).
 """
 from __future__ import annotations
 

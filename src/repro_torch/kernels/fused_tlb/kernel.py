@@ -1,11 +1,13 @@
 """Python wrapper of the Hopper fused TLB round (`csrc/fused_tlb.cu`).
 
-`fused_tlb_round` checks its tensors, allocates the outputs and the
-owner scratch with `torch.empty`, launches the kernel on the current
-stream and raises if the launch failed. It does not synchronise. The
-tags/asids/lru planes are updated in place and returned, as the TPU
-kernel's aliased outputs are. `fused_tlb_round.launches` counts the
-launches, so a run can show that it went through the kernel.
+`fused_tlb_round` checks its tensors, allocates the outputs with
+`torch.empty`, picks the kernel's instance for the way count
+(`instance`), launches it on the current stream and raises if the launch
+failed. It does not synchronise. The tags/asids/lru planes are updated in
+place and returned, as the TPU kernel's aliased outputs are; the kernel
+reads their rows with 16-byte loads, so their addresses must be 16-byte
+aligned (a whole torch allocation is). `fused_tlb_round.launches` counts
+the launches, so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -18,12 +20,34 @@ from repro_torch.kernels import _build
 
 MAX_LANES = 1024                 # one thread per lane, one thread block
 MAX_SMEM = 227 * 1024            # dynamic shared memory of one H100 block
+WAY_INSTANCE = 16                # the main path's way count, compiled as such
+ROW_ALIGN = 16                   # bytes: the planes' rows are read by int4
+
+
+def instance(n_ways: int) -> int:
+    """The kernel instance that takes `n_ways` ways: 16 for the main path's
+    16-way rounds, which `csrc/fused_tlb.cu` compiles as such, else 0, the
+    instance that reads the count at run time."""
+    return n_ways if n_ways == WAY_INSTANCE else 0
+
+
+def hash_bits(n_lanes: int) -> int:
+    """log2 of the write-owner hash table's size: at least 2 entries per
+    lane, at least 32."""
+    return max(5, (2 * n_lanes - 1).bit_length())
+
+
+def shared_bytes(n_sets: int, n_waves: int, n_lanes: int) -> int:
+    """Dynamic shared memory of one launch: the (sets, waves) fill ports,
+    the lanes' lines and candidate flags, the owner hash table's keys and
+    owners."""
+    return 4 * (n_sets * n_waves + 2 * n_lanes + 2 * (1 << hash_bits(n_lanes)))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("fused_tlb").fused_tlb_round
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -36,6 +60,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
             f"fused_tlb: {name} must be a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
+    if len(shape) == 2 and t.data_ptr() % ROW_ALIGN:
+        raise ValueError(f"fused_tlb: {name}'s address is not {ROW_ALIGN}-"
+                         f"byte aligned (the kernel reads rows by int4)")
 
 
 def fused_tlb_round(tags, asids, lru, vpn, asid, active, may_fill,
@@ -45,12 +72,13 @@ def fused_tlb_round(tags, asids, lru, vpn, asid, active, may_fill,
 
     tags/asids/lru: (sets, ways) int32 on the current CUDA device, updated
     in place. vpn/asid: (N,) int32; active/may_fill: (N,) bool; N
-    divisible by n_waves, 1 <= N <= 1024.
-    Returns (tags, asids, lru, hit (N,) int32, filled (N,) int32)."""
+    divisible by n_waves, 1 <= N <= 1024; the planes 16-byte aligned.
+    Returns (tags, asids, lru, hit (N,) int32, filled (N,) int32). Every
+    check runs before any build or launch."""
     dev = tags.device
-    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
-        raise ValueError(f"fused_tlb kernel needs tensors on the current "
-                         f"CUDA device, got {dev}")
+    if tags.dim() != 2 or vpn.dim() != 1:
+        raise ValueError(f"fused_tlb: tags {tuple(tags.shape)} is not "
+                         f"(sets, ways) or vpn {tuple(vpn.shape)} not (N,)")
     n_sets, n_ways = tags.shape
     N = vpn.shape[0]
     plane, lanes = (n_sets, n_ways), (N,)
@@ -66,21 +94,23 @@ def fused_tlb_round(tags, asids, lru, vpn, asid, active, may_fill,
     if not 1 <= N <= MAX_LANES or N % n_waves:
         raise ValueError(f"fused_tlb: lane count {N} must be in "
                          f"1..{MAX_LANES} and divisible by n_waves={n_waves}")
-    smem = 4 * (n_sets * n_waves + 2 * N)
+    smem = shared_bytes(n_sets, n_waves, N)
     if smem > MAX_SMEM:
-        raise ValueError(f"fused_tlb: fill-port table needs {smem} B of "
-                         f"shared memory > {MAX_SMEM}")
+        raise ValueError(f"fused_tlb: fill-port and owner tables need {smem}"
+                         f" B of shared memory > {MAX_SMEM}")
     if not -2**31 <= time < 2**31:
         raise ValueError(f"fused_tlb: time {time} does not fit int32")
+    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
+        raise ValueError(f"fused_tlb kernel needs tensors on the current "
+                         f"CUDA device, got {dev}")
 
-    # hit, filled and the per-slot owner scratch in one allocation
-    out = torch.empty(2 * N + n_sets * n_ways, dtype=torch.int32, device=dev)
-    hit, filled = out[:N], out[N:2 * N]
+    out = torch.empty(2 * N, dtype=torch.int32, device=dev)   # hit, filled
+    hit, filled = out[:N], out[N:]
     err = _entry()(tags.data_ptr(), asids.data_ptr(), lru.data_ptr(),
                    vpn.data_ptr(), asid.data_ptr(), active.data_ptr(),
                    may_fill.data_ptr(), hit.data_ptr(), filled.data_ptr(),
-                   out[2 * N:].data_ptr(), n_sets, n_ways, N, n_waves,
-                   int(track_asids), int(time),
+                   instance(n_ways), n_sets, n_ways, N, n_waves,
+                   int(track_asids), int(time), hash_bits(N),
                    torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tlb kernel launch failed: CUDA error "

@@ -12,11 +12,11 @@ that the kernel keeps on chip.
 `ssd_intra_chunk_split_ref` is the same step with the CUDA kernel's
 arithmetic: each of its three products (G = C.B^T, y = M.x and S) in split
 TF32, a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi with a_hi = tf32(a) and
-a_lo = tf32(a - a_hi) (`tf32_round`, as `cvt.rna.tf32.f32` rounds). It
-lets the CPU tests hold that arithmetic to the reference; nothing on a
-model path calls it. `ssd_limits` is the per-element limit, from each
-output's sum of |terms|, within which that arithmetic must stay of
-`ssd_intra_chunk_ref` at a model shape.
+a_lo = tf32(a - a_hi) (`_tf32.tf32_round`, as `cvt.rna.tf32.f32`
+rounds). It lets the CPU tests hold that arithmetic to the reference;
+nothing on a model path calls it. `ssd_limits` is the per-element limit,
+from each output's sum of |terms|, within which that arithmetic must stay
+of `ssd_intra_chunk_ref` at a model shape.
 
 `ssd_recurrence_ref` is the O(S) sequential recurrence of
 `src/repro/kernels/ssd_scan/ref.py::ssd_recurrence_ref`, the ground truth
@@ -26,22 +26,7 @@ from __future__ import annotations
 
 import torch
 
-
-def tf32_round(t):
-    """float32 -> the nearest TF32 value (10 stored mantissa bits), ties
-    away from zero, as a float32: `cvt.rna.tf32.f32` on the int32 view
-    (add half of the dropped 13 bits' unit to the magnitude, clear them)."""
-    bits = t.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _split_einsum(eq, a, b):
-    """einsum(eq, a, b) in split TF32: hi.hi + hi.lo + lo.hi, each partial
-    product exact in float32 and summed in float32."""
-    a_hi, b_hi = tf32_round(a), tf32_round(b)
-    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
-    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
-            + torch.einsum(eq, a_hi, b_hi))
+from repro_torch.kernels._tf32 import split_einsum, tf32_round  # noqa: F401
 
 
 def ssd_intra_chunk_ref(x, dA, Bm, Cm):
@@ -74,11 +59,11 @@ def ssd_intra_chunk_split_ref(x, dA, Bm, Cm):
     idx = torch.arange(Q, device=x.device)
     causal = (idx[None, :] <= idx[:, None])[None, None, :, :, None]
     L = torch.where(causal, torch.exp(diff), 0.0)
-    G = _split_einsum("bcqd,bcsd->bcqs", Cm, Bm)           # (B, nc, Q, Q)
+    G = split_einsum("bcqd,bcsd->bcqs", Cm, Bm)            # (B, nc, Q, Q)
     M = G[..., None] * L                                   # (B, nc, Q, Q, nh)
-    y = _split_einsum("bcqsh,bcshp->bcqhp", M, x)
+    y = split_einsum("bcqsh,bcshp->bcqhp", M, x)
     d2e = torch.exp(cs[:, :, -1:, :] - cs)                 # (B, nc, Q, nh)
-    S = _split_einsum("bcshp,bcsd->bchpd", d2e[..., None] * x, Bm)
+    S = split_einsum("bcshp,bcsd->bchpd", d2e[..., None] * x, Bm)
     return y, S, torch.exp(cs[:, :, -1, :])
 
 

@@ -10,8 +10,12 @@ reference's own bf16 arrays, carried bit for bit. The CUDA kernels
 themselves run only on the card (`chip_smoke.py` holds them against the
 same plain version on the same 18 cases and the edges at full length);
 here the wrapper's routing by dtype and its refusals, which come before
-any build or launch, are checked.
+any build or launch, are checked. The fp32 kernel's split-TF32 arithmetic
+is emulated on the CPU (`ref.attention_split_ref`) and held to the
+reference within 2e-5 on the sweep, a ragged 496-token shape and the
+edges; plain TF32 misses that tolerance.
 """
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -28,8 +32,10 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch.kernels.flash_attention import \
     kernel as kernel_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as pt_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as ref_mod  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_bhsd)
+from repro_torch.kernels._tf32 import tf32_round  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     tensor_from_numpy, tensor_to_numpy)
 
@@ -49,6 +55,19 @@ def _inputs(S, H, KV, dh, dtype, seed):
 
 def _port(*arrays):
     return [tensor_from_numpy(np.asarray(a), "cpu") for a in arrays]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wants(S, H, KV, dh, causal, window, bq, bk, seed):
+    """The reference's fp32 outputs, (B, S, H, dh) numpy: its Pallas kernel
+    in interpret mode, then its `attention_ref`."""
+    q, k, v = _inputs(S, H, KV, dh, jnp.float32, seed)
+    kernel = jax_flash(q, k, v, causal=causal, window=window, block_q=bq,
+                       block_k=bk, interpret=True)
+    plain = jnp.swapaxes(jax_ref(
+        jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2),
+        causal=causal, window=window), 1, 2)
+    return np.asarray(kernel, np.float32), np.asarray(plain, np.float32)
 
 
 @pytest.mark.parametrize("S,H,KV,dh,bq,bk", [
@@ -141,10 +160,10 @@ def test_flash_attention_edges(S, H, KV, dh, causal, window, dtype):
 
 
 def test_route_by_dtype():
-    """The dtype alone picks the kernel: bf16 the tensor-core kernel, fp32
-    the SIMT kernel, each with its own source; any other dtype raises."""
+    """The dtype alone picks the kernel: bf16 the wgmma kernel, fp32 the
+    split-TF32 kernel, each with its own source; any other dtype raises."""
     assert kernel_mod.route(torch.bfloat16) == "wgmma"
-    assert kernel_mod.route(torch.float32) == "simt"
+    assert kernel_mod.route(torch.float32) == "split_tf32"
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="not one of"):
             kernel_mod.route(dtype)
@@ -173,22 +192,26 @@ def _no_build(*_):
     ("cpu", torch.bfloat16, "current CUDA device"),
     ("cpu", torch.float32, "current CUDA device"),
     ("address", torch.bfloat16, "q's address is not 16-byte aligned"),
+    ("address", torch.float32, "q's address is not 16-byte aligned"),
     ("stride", torch.bfloat16, "k's stride"),
+    ("stride", torch.float32, "k's stride"),
     ("head_dim", torch.bfloat16, "head dim 80"),
     ("head_dim", torch.float32, "head dim 80"),
     ("dtype", torch.float16, "must share one of"),
 ])
 def test_wrapper_refuses_before_build(monkeypatch, case, dtype, match):
     """`flash_attention_bhsd` raises ValueError on CPU tensors, on
-    addresses or strides TMA cannot take (bf16 route) and on an
-    unsupported head dim, before it builds or launches anything."""
+    addresses or strides off 16 bytes (TMA in bf16, 16-byte copies in
+    fp32) and on an unsupported head dim, before it builds or launches
+    anything."""
     monkeypatch.setattr(kernel_mod._build, "load", _no_build)
     kernel_mod._entry.cache_clear()
     dh = 80 if case == "head_dim" else 64
+    pad = 4 if dtype == torch.bfloat16 else 2
     q, k, v = _bhsd_views(2, 40, 4, 2, dh, dtype,
                           offset=1 if case == "address" else 0,
-                          s_pad=4 if case == "stride" else 0)
-    if case == "stride":                 # q aligned, k's rows 136 B apart
+                          s_pad=pad if case == "stride" else 0)
+    if case == "stride":     # q aligned, k's rows 136 B (bf16), 264 B apart
         q = _bhsd_views(2, 40, 4, 2, dh, dtype)[0]
     before = (flash_attention_bhsd.launches,
               dict(flash_attention_bhsd.route_launches))
@@ -208,3 +231,53 @@ def test_tma_strides_of_the_model_layout():
     odd = torch.zeros(2, 3, 5, 68, dtype=torch.bfloat16)[:, :, :, :64]
     with pytest.raises(ValueError, match="stride"):
         kernel_mod.tma_strides(odd, "v")
+
+
+# the fp32 kernel's arithmetic: (S, H, KV, dh, causal, window, bq, bk,
+# seed), the reference's sweep, the ragged 496-token prefill of the fp32
+# match at a small width, and the edges
+SPLIT_CASES = (
+    [(S, H, KV, dh, causal, window, bq, bk, S + H)
+     for S, H, KV, dh, bq, bk in [(128, 4, 4, 64, 64, 64),
+                                  (256, 8, 2, 64, 64, 128),
+                                  (128, 4, 1, 128, 32, 64)]
+     for causal, window in [(True, None), (False, None), (True, 96)]]
+    + [(496, 4, 2, 128, True, None, 512, 512, 1)]
+    + [(S, H, KV, dh, causal, window, S, S, S + dh)
+       for S, H, KV, dh, causal, window in EDGES])
+
+
+def _split_port(case):
+    S, H, KV, dh, causal, window, _, _, seed = case
+    tq, tk, tv = (t.transpose(1, 2) for t in
+                  _port(*_inputs(S, H, KV, dh, jnp.float32, seed)))
+    out = ref_mod.attention_split_ref(tq, tk, tv, causal=causal,
+                                      window=window)
+    return out.transpose(1, 2).numpy()
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_tf32_arithmetic_within_fp32_tolerance(case):
+    """Both products in split TF32 (the fp32 kernel's arithmetic) stay
+    within the reference's fp32 atol = rtol = 2e-5 of its Pallas kernel
+    (interpret mode) and of its `attention_ref`."""
+    got = _split_port(case)
+    assert np.all(np.isfinite(got))
+    for want in _jax_wants(*case):
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_plain_tf32_misses_fp32_tolerance(monkeypatch):
+    """The negative control: one TF32 pass (hi.hi) per product misses 2e-5
+    where the split stays inside it, so the split is needed."""
+    def share(case):
+        want = _jax_wants(*case)[1]
+        err = np.abs(_split_port(case) - want)
+        return float((err / (2e-5 + 2e-5 * np.abs(want))).max())
+
+    cases = SPLIT_CASES[:3]
+    split = max(share(case) for case in cases)
+    monkeypatch.setattr(ref_mod, "split_einsum", lambda eq, a, b: (
+        torch.einsum(eq, tf32_round(a), tf32_round(b))))
+    plain = max(share(case) for case in cases)
+    assert split < 1 < plain

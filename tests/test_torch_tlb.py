@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import tlb as ref_tlb  # noqa: E402
 from repro.kernels.fused_tlb.ops import fused_tlb_access  # noqa: E402
 from repro_torch.core import tlb as pt_tlb  # noqa: E402
+from repro_torch.kernels.fused_tlb import kernel as kernel_mod  # noqa: E402
 from repro_torch.kernels.fused_tlb import ops as pt_ops  # noqa: E402
 from repro_torch.kernels.fused_tlb.kernel import fused_tlb_round  # noqa: E402
 from repro_torch.sim.convert import tlb_from_numpy, tlb_to_numpy  # noqa: E402
@@ -297,4 +298,54 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     before = fused_tlb_round.launches
     with pytest.raises(ValueError, match="CUDA"):
         fused_tlb_round(z, z, z, v, v, b, b, 0)
+    assert fused_tlb_round.launches == before
+
+
+@pytest.mark.parametrize("n_ways,want", [(16, 16), (2, 0), (8, 0), (64, 0),
+                                         (1, 0), (4, 0), (32, 0), (3, 0)])
+def test_kernel_instance_by_way_count(n_ways, want):
+    """The wrapper launches the instance compiled for the main path's 16
+    ways, else the one that reads the count at run time (the kernel
+    test's 2, 8 and 64 ways among them)."""
+    assert kernel_mod.instance(n_ways) == want
+
+
+# every round the repo runs: the main path's L2 (and under `ideal`) and
+# PWC rounds, the reference kernel test's shapes, the collision case
+REPO_SHAPES = PATH_SHAPES + [(1, 64, 30, 1), (32, 16, 30, 3), (64, 8, 64, 4),
+                             (4, 2, 24, 6), (1, 4, 2, 1)]
+
+
+@pytest.mark.parametrize("sets,ways,N,W", REPO_SHAPES)
+def test_kernel_shared_memory_admits_repo_shapes(sets, ways, N, W):
+    """The wrapper's shared-memory reckoning admits every shape the repo
+    runs, each within the 48 KB a launch takes without raising the
+    kernel's limit; the owner hash table has at least 2 entries a lane."""
+    assert 2 ** kernel_mod.hash_bits(N) >= 2 * N
+    smem = kernel_mod.shared_bytes(sets, W, N)
+    assert smem <= 48 * 1024 <= kernel_mod.MAX_SMEM
+    assert smem == 4 * (sets * W + 2 * N + 2 ** (kernel_mod.hash_bits(N) + 1))
+
+
+def _no_build(*_):
+    raise AssertionError("the wrapper built the kernel before checking")
+
+
+@pytest.mark.parametrize("plane", ["tags", "asids", "lru"])
+def test_kernel_wrapper_refuses_misaligned_planes(monkeypatch, plane):
+    """The kernel reads rows by 16-byte loads: a plane off 16-byte
+    alignment is refused with ValueError before any build or launch."""
+    monkeypatch.setattr(kernel_mod._build, "load", _no_build)
+    kernel_mod._entry.cache_clear()
+    planes = {k: torch.zeros((4, 16), dtype=torch.int32)
+              for k in ("tags", "asids", "lru")}
+    planes[plane] = torch.zeros(4 * 16 + 1, dtype=torch.int32)[1:] \
+        .view(4, 16)
+    v = torch.zeros(8, dtype=torch.int32)
+    b = torch.zeros(8, dtype=torch.bool)
+    before = fused_tlb_round.launches
+    with pytest.raises(ValueError, match=f"{plane}'s address is not "
+                                         "16-byte aligned"):
+        fused_tlb_round(planes["tags"], planes["asids"], planes["lru"], v, v,
+                        b, b, 0)
     assert fused_tlb_round.launches == before
