@@ -23,6 +23,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                run_mix == run_pair and idle partner == run_solo;
   4. timed  -- simulated cycles per second of the 9000-cycle mask run
                (the `mask@9000` golden of phase 3);
+ 12. grid   -- (run right after phase 4, on its build) the simulator's
+               grid layer: the row-axis `fused_tlb` (one block per row,
+               all rows in one launch) against its plain version, exactly,
+               at R = 1, 3 and 16 rows of seeded inputs at both main-path
+               shapes, and each row against the kernel run on that row
+               alone; its device time at R = 1 and 40 (graph replay,
+               beside the launch floor); `run_grid` over the 8 designs x
+               3 mixes at 1200 cycles, whose 3DS+BLK cells must give the 8
+               1200-cycle goldens float-hex, with `fused_tlb` launches ==
+               the 8 passes' rounds (not rounds x rows); grid == `run_mix`
+               bitwise for ideal/pwc/mask x 2 solo mixes at 300 cycles;
+               `sweep` == the per-design `Experiment` loop (raw stats and
+               derived metrics); `predict_mixes` with `pad_rows` twice
+               sets up 1 plan, then 0 (`runner.TRACE_COUNT`); no host sync
+               in a step at R = 8 (`set_sync_debug_mode("error")`); then
+               simulated row-cycles per second of one mask pass of 600
+               cycles at R = 1, 8 and 40 (the 20 pairs of
+               `pair_workloads(n_pairs=20)` and 20 of their solos), and
+               at R = 40 a `torch.profiler` window's device time, kernels
+               and device busy share per step;
   5. flash  -- the `flash_attention` kernels against their plain PyTorch
                version on the card, each check on the route its dtype
                selects (bf16: the wgmma kernel `flash_attention_sm90.cu`;
@@ -415,11 +435,44 @@ def launch_floor_graph(torch, reps):
     return time_graph(torch, lambda: x.add_(1), reps)
 
 
+def stack_cases(np, cases):
+    """Cases of one shape as the rows of one row-axis round."""
+    keys = ("tags", "asids", "lru", "vpn", "asid", "active", "may_fill")
+    out = dict(cases[0])
+    out.update({k: np.stack([c[k] for c in cases]) for k in keys})
+    return out
+
+
+def row_case(case, r):
+    keys = ("tags", "asids", "lru", "vpn", "asid", "active", "may_fill")
+    return dict(case, **{k: case[k][r] for k in keys})
+
+
+def bound_rows(np, case, out):
+    """`bound` of a row-axis round: the rows' bytes and operations summed."""
+    rows = len(case["vpn"])
+    work = [round_work(np, row_case(case, r), [x[r] for x in out])
+            for r in range(rows)]
+    return least_time(sum(w[0] for w in work), sum(w[1] for w in work))
+
+
+def least_time(nbytes, ops):
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 def bound(np, case, out):
     """Least time in ms for one round on these inputs, and what bounds it:
     the larger of its bytes over the HBM rate and its operations over the
     CUDA cores' rate. `out` is the round's result on this case (tags,
-    asids, lru, hit, filled), as numpy arrays.
+    asids, lru, hit, filled), as numpy arrays."""
+    return least_time(*round_work(np, case, out))
+
+
+def round_work(np, case, out):
+    """(bytes, operations) of one round on these inputs (see `bound`).
 
     Bytes, counted from this case's data: the tag row (and the asid row
     when tracked) of each set an active lane maps to, and the LRU row of
@@ -445,10 +498,7 @@ def bound(np, case, out):
     wave = np.arange(N) // (N // W)
     ops = (2 * int(act.sum()) * ways * (2 if track else 1)
            + int(wave[act].sum()) + int(filled.sum()) * ways)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
+    return nbytes, ops
 
 
 def flash_inputs(torch, np, S, H, KV, dh, dtype, seed, B=2):
@@ -1222,7 +1272,218 @@ def paged_phase(torch, np, card):
                       "dtype": "bfloat16"}}
 
 
+GRID_ROWS_CHECKED = (1, 3, 16)       # row counts of the kernel check
+GRID_ROWS_TIMED = 40                 # rows of the timed row-axis round
+GRID_MIXES = [("3DS", "BLK"), ("3DS", None), ("BLK", None)]
+GRID_LOOP = (("ideal", "pwc", "mask"), [("3DS", None), ("BLK", None)], 300)
+SWEEP = (["ideal", "gpu-mmu", "mask"], [("3DS", "BLK"), ("MUM", "RED")],
+         300)
+GRID_RATE_ROWS, GRID_RATE_CYCLES = (1, 8, 40), 600
+GRID_PROFILE_STEPS = 50
+
+
+def grid_rows():
+    """The 40 rows of the throughput pass: the 20 pairs of
+    `pair_workloads(n_pairs=20)` and the solo rows of the first 20 of
+    their 22 benches."""
+    from repro_torch.sim.workloads import pair_workloads
+    pairs = pair_workloads(n_pairs=20)
+    benches = sorted({b for m in pairs for b in m})
+    rows = pairs + [(b, None) for b in benches]
+    return rows[:GRID_ROWS_TIMED]
+
+
+def profile_steps(torch, cfg, dp, pm, st, cycle, steps):
+    """A `torch.profiler` window of `steps` cycles: (device ms per step,
+    kernels per step, wall ms per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sim import memsys
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for _ in range(steps):
+                st = memsys.step(cfg, dp, pm, st, cycle)
+                cycle += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return dev_ms / steps, len(kernels) / steps, wall * 1e3 / steps
+
+
+def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
+               single_rate):
+    """Phase 12: the row-axis kernel and the grid layer on the card.
+    Returns the fields it adds to the fused_tlb entry of the JSON line."""
+    from repro_torch.core.design import design_params, get_design
+    from repro_torch.core.mask import ALL_DESIGNS
+    from repro_torch.sim import memsys, runner
+    from repro_torch.sim.config import SimConfig
+    from repro_torch.sim.workloads import app_matrix
+
+    # ---- kernel: rows against the plain version and against R = 1 ------
+    checked = 0
+    max_err = 0
+    for label, shape in (("L2", L2_SHAPE), ("PWC", PWC_SHAPE)):
+        for rows in GRID_ROWS_CHECKED:
+            case = stack_cases(np, [path_case(np, *shape, "half",
+                                              seed=1000 * rows + 17 * r)
+                                    for r in range(rows)])
+            max_err = max(max_err, compare(torch, fused_tlb_round,
+                                           fused_tlb_access_ref, case))
+            args, kw = on_card(torch, case)
+            batched = fused_tlb_round(*args, case["time"], **kw)
+            for r in range(rows):
+                one_args, _ = on_card(torch, row_case(case, r))
+                one = fused_tlb_round(*one_args, case["time"], **kw)
+                for name, a, b in zip(("tags", "asids", "lru", "hit",
+                                       "filled"), batched, one):
+                    if not torch.equal(a[r], b):
+                        raise AssertionError(
+                            f"fused_tlb row {r} of {rows} != the kernel on "
+                            f"that row alone: {name} ({label})")
+            checked += 1
+    log(f"[grid] fused_tlb with rows == plain version (max |err| "
+        f"{max_err}) and each row == the kernel on that row alone, R in "
+        f"{GRID_ROWS_CHECKED} at the L2 and PWC shapes [{card}]")
+
+    times = []
+    for label, shape in (("L2", L2_SHAPE), ("PWC", PWC_SHAPE)):
+        for rows in (1, GRID_ROWS_TIMED):
+            case = stack_cases(np, [path_case(np, *shape, "half",
+                                              seed=7 + r)
+                                    for r in range(rows)])
+            ms = time_round_graph(torch, fused_tlb_round, case, 200)
+            floor = launch_floor_graph(torch, 200)
+            plain = time_round(torch, fused_tlb_access_ref, case, 20)
+            args, kw = on_card(torch, case)
+            out = fused_tlb_access_ref(*args, case["time"], **kw)
+            least, bound_by = bound_rows(
+                np, case, [t.cpu().numpy() for t in out])
+            times.append(dict(round=label, rows=rows, ms=ms,
+                              launch_floor_ms=floor, plain_ms=plain,
+                              bound_ms=least, bound_by=bound_by))
+            log(f"[grid] {label} round x {rows} rows: kernel {ms * 1e3:.2f}"
+                f" us on the device (graph replay, one launch) beside a "
+                f"launch floor of {floor * 1e3:.2f} us; plain version "
+                f"{plain * 1e3:.2f} us; bound {least * 1e3:.4f} us by "
+                f"{bound_by} [{card}]")
+
+    # ---- the goldens through the grid; launches == rounds --------------
+    names = list(ALL_DESIGNS)
+    fused_tlb_round.launches = 0
+    t0 = time.perf_counter()
+    grid = runner.run_grid(names, GRID_MIXES, cycles=1200, device="cuda")
+    grid_s = time.perf_counter() - t0
+    grid_launches = fused_tlb_round.launches
+    rounds = sum(1200 * (2 if n == "pwc" else 1) for n in names)
+    for i, name in enumerate(names):
+        for key, want in GOLDEN[name].items():
+            got = [x.hex() for x in
+                   np.asarray(grid[i][0][key], np.float64).ravel().tolist()]
+            if got != want:
+                raise AssertionError(f"grid {name}:{key} {got} != {want}")
+    if grid_launches != rounds:
+        raise AssertionError(f"run_grid launched fused_tlb {grid_launches} "
+                             f"times for {rounds} rounds of 8 passes of "
+                             f"{len(GRID_MIXES)} rows")
+    log(f"[grid] run_grid 8 designs x {len(GRID_MIXES)} mixes x 1200 "
+        f"cycles: the 8 goldens float-hex; fused_tlb launches "
+        f"{grid_launches} == rounds {rounds} (rows share each launch); "
+        f"{grid_s:.1f} s [{card}]")
+
+    # ---- grid == loop; sweep == Experiment loop; plans -----------------
+    designs, mixes, cycles = GRID_LOOP
+    grid = runner.run_grid(designs, mixes, cycles=cycles, device="cuda")
+    for i, d in enumerate(designs):
+        for m, mix in enumerate(mixes):
+            loop = runner.run_mix(d, list(mix), cycles, device="cuda")
+            for k in loop:
+                if not np.array_equal(np.asarray(loop[k]),
+                                      np.asarray(grid[i][m][k])):
+                    raise AssertionError(f"grid != run_mix: {d} {mix} {k}")
+    designs, mixes, cycles = SWEEP
+    swept = runner.sweep(designs, mixes, cycles=cycles, device="cuda")
+    for d in designs:
+        ell = runner.Experiment(d, mixes, cycles, device="cuda").run()
+        res = swept[d]
+        if res.solo_ipc != ell.solo_ipc or len(res) != len(ell):
+            raise AssertionError(f"sweep != Experiment: {d} solo baselines")
+        for a, b in zip(res, ell):
+            if (a.weighted_speedup() != b.weighted_speedup()
+                    or a.unfairness() != b.unfairness()
+                    or any(not np.array_equal(np.asarray(a.raw[k]),
+                                              np.asarray(b.raw[k]))
+                           for k in a.raw)):
+                raise AssertionError(f"sweep != Experiment: {d} "
+                                     f"{a.benches}")
+    cands = [("3DS",), ("BLK",), ("3DS", "BLK")]
+    plans = []
+    for _ in range(2):
+        before = runner.TRACE_COUNT
+        pred = runner.predict_mixes("mask", cands, cycles=300, pad_rows=8,
+                                    device="cuda")
+        plans.append(runner.TRACE_COUNT - before)
+    if plans != [1, 0] or len(pred) != 3:
+        raise AssertionError(f"predict_mixes set up {plans} plans; want "
+                             f"[1, 0]")
+    log(f"[grid] run_grid == run_mix (bitwise), sweep == Experiment loop, "
+        f"predict_mixes with pad_rows: {plans} plans; weighted speedup of "
+        f"3DS+BLK {pred[2].weighted_speedup!r}")
+
+    # ---- no host sync in a step of 8 rows ------------------------------
+    cfg = SimConfig(design=get_design("mask"), sim_cycles=20, device="cuda")
+    dp = design_params(cfg.design)
+    pm = torch.tensor(np.stack([app_matrix(m) for m in grid_rows()[:8]]),
+                      device="cuda")
+    st = runner.simulate(cfg, dp, pm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for cycle in range(20, 25):
+                st = memsys.step(cfg, dp, pm, st, cycle)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("[grid] 5 steps of 8 rows under set_sync_debug_mode('error'): no "
+        "host sync")
+
+    # ---- throughput: row-cycles per second ------------------------------
+    rows_all = grid_rows()
+    rates = {}
+    for rows in GRID_RATE_ROWS:
+        t0 = time.perf_counter()
+        runner.run_batch("mask", rows_all[:rows], cycles=GRID_RATE_CYCLES,
+                         device="cuda")
+        dt = time.perf_counter() - t0
+        rates[rows] = rows * GRID_RATE_CYCLES / dt
+        log(f"[grid] mask pass of {rows} rows x {GRID_RATE_CYCLES} cycles: "
+            f"{dt:.2f} s, {rates[rows]:.1f} simulated row-cycles/s "
+            f"({rates[rows] / rates[1]:.2f}x R = 1; phase 4's single run: "
+            f"{single_rate:.1f} cycles/s) [{card}]")
+    pm = torch.tensor(np.stack([app_matrix(m) for m in rows_all]),
+                      device="cuda")
+    st = runner.simulate(cfg, dp, pm)
+    dev_ms, kernels, wall_ms = profile_steps(torch, cfg, dp, pm, st, 20,
+                                             GRID_PROFILE_STEPS)
+    log(f"[grid] step of {len(rows_all)} rows ({GRID_PROFILE_STEPS} steps "
+        f"in torch.profiler): {wall_ms:.2f} ms wall, {dev_ms:.3f} ms on "
+        f"the device, {kernels:.0f} kernels, device busy "
+        f"{dev_ms / wall_ms:.1%} [{card}]")
+    r40 = [t for t in times if t["rows"] == GRID_ROWS_TIMED]
+    return dict(rows_checked=list(GRID_ROWS_CHECKED), rows_timed=r40,
+                grid_launches=grid_launches,
+                row_cycles_per_s={str(k): v for k, v in rates.items()},
+                grid_step={"rows": len(rows_all), "device_ms": dev_ms,
+                           "kernels": kernels, "wall_ms": wall_ms})
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
@@ -1333,6 +1594,12 @@ def main():
     log(f"[timed] run_mix mask 3DS+BLK 9000 cycles: {dt:.2f} s, "
         f"{9000 / dt:.1f} simulated cycles/s [{card}]")
 
+    # ---- 12. the grid layer on the same build ---------------------------
+    t0 = time.perf_counter()
+    grid = grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
+                      9000 / dt)
+    log(f"[grid] phase 12 took {time.perf_counter() - t0:.1f} s")
+
     # ---- 5-7. the model's serving path and its kernel -------------------
     flash, flash_fp32 = flash_phase(torch, np, flash_attention_bhsd, card)
     n_attn = get_model(SERVE_ARCH).n_layers
@@ -1368,6 +1635,8 @@ def main():
     # ---- 11. the paged KV pool and its kernel ---------------------------
     paged = paged_phase(torch, np, card)
 
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
+        f" s [{card}]")
     l2 = timings[0]
     print(json.dumps({"kernels": [{
         "name": "fused_tlb", "route": "cuda",
@@ -1378,7 +1647,8 @@ def main():
         "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
-        "library_ms": None, "shapes": timings}, flash, flash_fp32, ssd,
+        "library_ms": None, "shapes": timings, **grid}, flash, flash_fp32,
+        ssd,
         paged]}),
         flush=True)
     print(card_line(), flush=True)

@@ -36,21 +36,23 @@ def init(device) -> BypassState:
 def record(state: BypassState, depth_tag, hit, active) -> BypassState:
     depth = depth_tag.long()
     h = torch.zeros_like(state.hits).index_add_(
-        0, depth, (active & hit).to(torch.int32))
+        -1, depth, (active & hit).to(torch.int32))
     a = torch.zeros_like(state.accesses).index_add_(
-        0, depth, active.to(torch.int32))
+        -1, depth, active.to(torch.int32))
     return state._replace(hits=state.hits + h, accesses=state.accesses + a)
 
 
 def should_fill(state: BypassState, depth_tag) -> torch.Tensor:
-    """(N,) bool: may this request fill the shared L2 data cache?"""
+    """(N,) bool (rows: (R, N)): may this request fill the shared L2 data
+    cache? depth_tag: (N,), the same in every row."""
     sampling = (state.epoch_idx % SAMPLE_EVERY) == 0
-    level_ok = (state.rate_q10 >= state.rate_q10[0]) | ~state.have_rates \
-        | sampling
+    level_ok = (state.rate_q10 >= state.rate_q10[..., :1]) \
+        | ~state.have_rates[..., None] | sampling[..., None]
     # data (depth 0) always fills; a fill kernel, not a host-to-device
     # copy of a Python scalar, so no host sync
-    level_ok = torch.cat([level_ok.new_ones(1), level_ok[1:]])
-    return level_ok[depth_tag.long()]
+    level_ok = torch.cat([torch.ones_like(level_ok[..., :1]),
+                          level_ok[..., 1:]], -1)
+    return level_ok[..., depth_tag.long()]
 
 
 def epoch_update(state: BypassState) -> BypassState:
@@ -63,6 +65,6 @@ def epoch_update(state: BypassState) -> BypassState:
         hits=torch.zeros_like(state.hits),
         accesses=torch.zeros_like(state.accesses),
         rate_q10=rate.to(torch.int32),
-        have_rates=state.have_rates | measured[0],
+        have_rates=state.have_rates | measured[..., 0],
         epoch_idx=state.epoch_idx + 1,
     )

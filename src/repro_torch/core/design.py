@@ -192,13 +192,56 @@ def design_params(d) -> DesignParams:
     )
 
 
+def from_legacy(dp) -> Design:
+    """Convert a legacy `repro_torch.core.mask.DesignPoint` to a `Design`."""
+    if isinstance(dp, Design):
+        return dp
+    m = dp.mask
+    if dp.ideal_tlb:
+        kind = "ideal"
+    elif dp.use_pwc:
+        if dp.use_l2_tlb:
+            # the old pipeline would run BOTH the shared L2 TLB and the
+            # PWC for this flag combo; no TranslationSpec kind expresses
+            # that, so refuse rather than drop one of them
+            raise ValueError(
+                f"legacy DesignPoint {dp.name!r} sets both use_l2_tlb and "
+                "use_pwc; that combination has no Design equivalent — "
+                "pick one translation organization")
+        kind = "pwc"
+    elif dp.use_l2_tlb:
+        kind = "shared_l2_tlb"
+    else:
+        kind = "walk_only"
+    return Design(
+        name=dp.name,
+        translation=TranslationSpec(
+            kind=kind, l1_entries=m.l1_tlb_entries,
+            l2_entries=m.l2_tlb_entries, l2_ways=m.l2_tlb_ways,
+            walk_levels=m.walk_levels,
+            max_concurrent_walks=m.max_concurrent_walks),
+        partition=PartitionSpec(
+            "static" if dp.static_partition else "shared"),
+        tokens=TokenSpec(enabled=m.tlb_tokens,
+                         initial_frac=m.initial_token_frac,
+                         step_frac=m.token_step_frac,
+                         bypass_cache_entries=m.bypass_cache_entries),
+        bypass=BypassSpec(enabled=m.l2_bypass),
+        dram=DramSpec("mask" if m.dram_sched else "fr_fcfs",
+                      thres_max=m.thres_max),
+        epoch_cycles=m.epoch_cycles,
+    )
+
+
 def as_design(d) -> Design:
-    """Normalize str | Design to a Design."""
+    """Normalize str | Design | legacy DesignPoint to a Design."""
     if isinstance(d, Design):
         return d
     if isinstance(d, str):
         return get_design(d)
-    raise TypeError(f"not a design name or Design: {d!r}")
+    if hasattr(d, "mask") and hasattr(d, "name"):  # legacy DesignPoint
+        return from_legacy(d)
+    raise TypeError(f"not a design name/Design/DesignPoint: {d!r}")
 
 
 _REGISTRY: Dict[str, Design] = {}

@@ -6,6 +6,10 @@ always first), Silver (data requests of one application at a time, quota
 per Eq. (1)), Normal (everything else, FR-FCFS). Each call ranks a batch
 of requests and returns their latencies; the open rows, silver accounting
 and per-class backlog update functionally.
+
+The state may carry a leading row axis (every field (R, ...)), one
+independent DRAM per row, with lanes (R, N); every per-lane scatter and
+gather runs along a row's own flattened table, so rows never collide.
 """
 from __future__ import annotations
 
@@ -40,18 +44,20 @@ def init(n_channels: int, n_banks: int, n_apps: int, device) -> DramState:
 
 
 def silver_quota(state: DramState, thres_max: int = 500) -> torch.Tensor:
-    """(n_apps,) Eq. (1) thresholds, computed in float32."""
+    """(n_apps,) (rows: (R, n_apps)) Eq. (1) thresholds, in float32. The
+    weights are integers below 2**24, so their sum is exact in any order."""
     w = (state.conc_walks * state.warps_stalled).to(torch.float32)
-    tot = w.sum().clamp(min=1.0)
+    tot = w.sum(-1, keepdim=True).clamp(min=1.0)
     return (thres_max * w / tot).to(torch.int32).clamp(min=1)
 
 
 def classify(state: DramState, app, is_tlb, mask_enabled: bool):
     """Queue class per request: 0 golden, 1 silver, 2 normal. Disabled
-    means one FR-FCFS queue: everything is class 2."""
+    means one FR-FCFS queue: everything is class 2. app/is_tlb: (N,),
+    or (R, N) for a state with rows."""
     if not mask_enabled:
         return torch.full_like(app, 2, dtype=torch.int32)
-    silver = app == state.silver_app
+    silver = app == state.silver_app[..., None]
     return (2 - silver.to(torch.int32)).masked_fill(is_tlb, 0)
 
 
@@ -59,77 +65,87 @@ def access(state: DramState, channel, bank, row, app, is_tlb, active,
            mask_enabled: bool, thres_max: int = 500,
            fr_fcfs: bool = True, waves: int = 1
            ) -> Tuple[DramState, torch.Tensor]:
-    """Batched DRAM access model. All args (N,). Returns (state', latency).
+    """Batched DRAM access model. channel/bank/row/active: (N,), or (R, N)
+    for a state with rows; app/is_tlb: (N,) shared by the rows, or (R, N).
+    Returns (state', latency).
 
     Latency = service (row hit/miss) + (requests ranked ahead on the same
     (channel, bank) + standing backlog) * T_QUEUE_UNIT. `waves` splits the
     batch into contiguous equal groups queued independently, exactly as
     the sequential per-round calls were."""
-    n_channels, n_banks = state.open_row.shape
-    cls = classify(state, app, is_tlb, mask_enabled)
-    dev = app.device
+    if state.open_row.dim() == 2:       # one DRAM: a row axis of one
+        st, latency = access(
+            DramState(*(x[None] for x in state)), channel[None], bank[None],
+            row[None], app, is_tlb, active[None], mask_enabled, thres_max,
+            fr_fcfs, waves)
+        return DramState(*(x[0] for x in st)), latency[0]
+    R, n_channels, n_banks = state.open_row.shape
+    cls = classify(state, app, is_tlb, mask_enabled).expand(R, -1)
+    dev = channel.device
 
-    N = app.shape[0]
+    N = channel.shape[1]
     C = N // waves
-    cb_flat = channel * n_banks + bank
-    row_hit = state.open_row.reshape(-1)[cb_flat.long()] == row
-    act_w = active.reshape(waves, C)
+    cb_flat = (channel * n_banks + bank).long()                  # (R, N)
+    row_hit = state.open_row.reshape(R, -1).gather(1, cb_flat) == row
+    act_w = active.reshape(R, waves, C)
     if waves > 1:
-        # progressive open rows across waves, per flat position
-        row_w = row.reshape(waves, C)
-        cb_w = cb_flat.reshape(waves, C)
+        # progressive open rows across waves, per flat position: [r, j, i]
+        # is wave j before wave i
+        row_w = row.reshape(R, waves, C)
+        cb_w = cb_flat.reshape(R, waves, C)
         w_ix = torch.arange(waves, device=dev)
         tri_w = w_ix[:, None, None] < w_ix[None, :, None]
-        opened = ((row_w[:, None, :] == row_w[None, :, :])
-                  & (cb_w[:, None, :] == cb_w[None, :, :])
-                  & tri_w & act_w[:, None, :]).any(0).reshape(N)
+        opened = ((row_w[:, :, None] == row_w[:, None])
+                  & (cb_w[:, :, None] == cb_w[:, None])
+                  & tri_w & act_w[:, :, None]).any(1).reshape(R, N)
         row_hit = row_hit | opened
     service = torch.where(row_hit, T_ROW_HIT, T_ROW_MISS).to(torch.int32)
 
-    # rank = requests ahead of me on my (channel, bank) within my wave
-    cb = cb_flat.reshape(waves, C)
+    # rank = requests ahead of me on my (channel, bank) within my wave;
+    # [r, w, i, j] is lane j against lane i
+    cb = cb_flat.reshape(R, waves, 1, C)
     key = cls * 2 + (~row_hit).to(torch.int32) if fr_fcfs else cls * 2
-    key = key.reshape(waves, C)
+    key = key.reshape(R, waves, 1, C)
+    key_i = key.transpose(2, 3)
     c_ix = torch.arange(C, device=dev)
     tri = c_ix[None, :] < c_ix[:, None]                       # j before i
-    ahead = (cb[:, None, :] == cb[:, :, None]) & act_w[:, None, :] \
-        & ((key[:, None, :] < key[:, :, None])
-           | ((key[:, None, :] == key[:, :, None]) & tri[None]))
-    n_ahead = ahead.sum(2, dtype=torch.int32).reshape(N)
+    ahead = (cb == cb.transpose(2, 3)) & act_w[:, :, None] \
+        & ((key < key_i) | ((key == key_i) & tri))
+    n_ahead = ahead.sum(-1, dtype=torch.int32).reshape(R, N)
 
     # standing backlog + EWMA decay toward the observed per-class pressure,
-    # chained once per wave; each wave reads the backlog its round saw
+    # chained once per wave; each wave reads the backlog its round saw.
+    # (wave, channel, class) of each lane, flat within its row:
     act_i = active.to(torch.int32)
-    cls_l = cls.long()
-    ch_l = channel.long()
     wave_ix = torch.arange(N, device=dev) // C
-    counts = torch.zeros((waves, n_channels, 3), dtype=torch.int32,
-                         device=dev).index_put_(
-        (wave_ix, ch_l, cls_l), act_i, accumulate=True)
+    wcc = (wave_ix * n_channels + channel.long()) * 3 + cls.long()
+    counts = torch.zeros((R, waves * n_channels * 3), dtype=torch.int32,
+                         device=dev).scatter_add_(1, wcc, act_i) \
+        .reshape(R, waves, n_channels, 3)
     qs = []
     queue_len = state.queue_len
-    for counts_k in counts.unbind(0):
+    for counts_k in counts.unbind(1):
         qs.append(queue_len)
         queue_len = torch.add(counts_k, queue_len, alpha=3) // 4
-    backlog = torch.stack(qs)[wave_ix, ch_l, cls_l]
+    backlog = torch.stack(qs, 1).reshape(R, -1).gather(1, wcc)
 
     latency = service + (n_ahead + backlog) * T_QUEUE_UNIT
     latency = latency * act_i
 
     # ---- state updates ----
     # open rows: the LAST active request per (channel, bank) wins. The
-    # reference gets that from XLA's serial scatter order; index_put_ has
-    # no order for duplicate indices, so take the highest active lane of
+    # reference gets that from XLA's serial scatter order; scatter has no
+    # order for duplicate indices, so take the highest active lane of
     # each (channel, bank) explicitly and gather its row.
     n_cb = n_channels * n_banks
-    order = torch.arange(N, device=dev)
-    last = torch.full((n_cb + 1,), -1, dtype=torch.long, device=dev)
-    last.scatter_reduce_(0, torch.where(active, cb_flat.long(), n_cb), order,
+    last = torch.full((R, n_cb + 1), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(1, torch.where(active, cb_flat, n_cb),
+                         torch.arange(N, device=dev).expand(R, N),
                          reduce="amax")
-    last = last[:-1]
-    new_open = torch.where(last >= 0, row[last.clamp(min=0)],
-                           state.open_row.reshape(-1)) \
-        .reshape(n_channels, n_banks)
+    last = last[:, :-1]
+    new_open = torch.where(last >= 0, row.gather(1, last.clamp(min=0)),
+                           state.open_row.reshape(R, -1)) \
+        .reshape(R, n_channels, n_banks)
 
     # silver rotation: consume quota per wave (at most one rotation per
     # wave); classification keeps the cycle-start silver app. With the
@@ -139,22 +155,25 @@ def access(state: DramState, channel, bank, row, app, is_tlb, active,
     # rotate, so the rotation is skipped.
     silver_app, silver_left = state.silver_app, state.silver_left
     if mask_enabled:
-        n_apps = state.conc_walks.shape[0]
+        n_apps = state.conc_walks.shape[-1]
         # the app index advances by at most one per wave, so a table of
         # waves + 1 copies of next_quota[a] = quota[(a + 1) % n_apps]
         # needs no modulo inside the loop
-        next_quota = silver_quota(state, thres_max).roll(-1) \
-            .repeat(waves + 1)
-        served_w = (active & (cls == 1)).reshape(waves, C) \
-            .sum(1, dtype=torch.int32)
-        # a (1,) index: indexing with a 0-d tensor would read it on the host
-        app = silver_app.long().reshape(1)
-        for served in served_w.unbind(0):
+        next_quota = silver_quota(state, thres_max).roll(-1, -1) \
+            .repeat(1, waves + 1)
+        served_w = (active & (cls == 1)).reshape(R, waves, C) \
+            .sum(-1, dtype=torch.int32)
+        # an (R, 1) index: indexing with a 0-d tensor would read it on the
+        # host
+        app_ix = silver_app.long()[:, None]
+        for served in served_w.unbind(1):
             left = silver_left - served
             rotate = left <= 0
-            silver_left = torch.where(rotate, next_quota[app][0], left)
-            app = app + rotate
-        silver_app = (app[0] % n_apps).to(torch.int32)
+            silver_left = torch.where(rotate,
+                                      next_quota.gather(1, app_ix)[:, 0],
+                                      left)
+            app_ix = app_ix + rotate[:, None]
+        silver_app = (app_ix[:, 0] % n_apps).to(torch.int32)
 
     return state._replace(open_row=new_open, silver_app=silver_app,
                           silver_left=silver_left,

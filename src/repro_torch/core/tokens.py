@@ -4,6 +4,9 @@ Every warp may probe the shared L2 TLB; only token-holding warps may fill
 it. Token counts are per application and hill-climb each epoch on the
 shared-TLB miss-rate delta. All float arithmetic stays in float32, as in
 the reference.
+
+The state may carry a leading row axis (every field (R, ...)), one
+independent token state per row; the functions broadcast over it.
 """
 from __future__ import annotations
 
@@ -40,11 +43,12 @@ def init(n_apps: int, warps_per_app: torch.Tensor,
 
 
 def record(state: TokenState, app, hit, active) -> TokenState:
-    """Accumulate per-app shared-TLB hit/miss counters. app/hit/active: (N,)."""
+    """Accumulate per-app shared-TLB hit/miss counters. app: (N,), the
+    same lane-to-app map in every row; hit/active: (N,) (rows: (R, N))."""
     h = torch.zeros_like(state.epoch_hits).index_add_(
-        0, app, (hit & active).to(torch.int32))
+        -1, app, (hit & active).to(torch.int32))
     m = torch.zeros_like(state.epoch_misses).index_add_(
-        0, app, (~hit & active).to(torch.int32))
+        -1, app, (~hit & active).to(torch.int32))
     return state._replace(epoch_hits=state.epoch_hits + h,
                           epoch_misses=state.epoch_misses + m)
 
@@ -72,8 +76,9 @@ def epoch_update(state: TokenState, warps_per_app: torch.Tensor,
     # bounce off the clip bounds instead of saturating there
     new_dir = torch.where(proposed != new_tokens, -new_dir, new_dir)
     # during the warm-up epoch no bypassing happens: only install baselines
-    new_tokens = torch.where(state.first_epoch, state.tokens, new_tokens)
-    new_dir = torch.where(state.first_epoch, state.direction, new_dir)
+    first = state.first_epoch[..., None]
+    new_tokens = torch.where(first, state.tokens, new_tokens)
+    new_dir = torch.where(first, state.direction, new_dir)
 
     return TokenState(
         tokens=new_tokens,

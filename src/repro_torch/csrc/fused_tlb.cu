@@ -6,22 +6,27 @@
 // The simulator calls it once per cycle for the shared L2 data cache
 // (1024 sets x 16 ways, 240 lanes in 8 waves; 120 lanes in 4 waves under
 // the ideal design) and once more for the page-walk cache under the pwc
-// design (64 x 16, 120 lanes in 4 waves). Both rounds are tag-only.
+// design (64 x 16, 120 lanes in 4 waves). Both rounds are tag-only. A grid
+// of R simulations (`run_grid`'s rows) runs R independent rounds, one per
+// row, in the same launch.
 //
 // What bounds it: an L2 round reads about 30 KB of table rows and writes a
 // few hundred words. At 3.35 TB/s that is ~10 ns of memory traffic and far
 // below a microsecond of integer work, so the launch latency (a few us)
 // sets the floor, not bandwidth or arithmetic. The design therefore does
-// the whole round in ONE launch of ONE thread block, one thread per lane,
-// with the phases separated by __syncthreads(), and keeps each lane's
-// chain of dependent memory accesses short:
+// a row's whole round in ONE thread block, one thread per lane, with the
+// phases separated by __syncthreads(), launches ONE block per row (the
+// rows share nothing, so R rounds cost one launch and, up to the SM count,
+// about one round's time), and keeps each lane's chain of dependent memory
+// accesses short:
 //  * The main path's 16-way rounds run an instance compiled for 16 ways;
 //    one more instance takes the way count at run time for every other
 //    shape. A 16-way lane reads its set's tag row (and asid row) and, if
 //    it may fill, its LRU row, all at once, with four 16-byte loads each,
 //    and compares in registers. The LRU row stays in registers, so the
 //    victim's rank (16 x 16 compares) touches no memory.
-//  * The cross-lane tables live in shared memory: the per-(set, wave) fill
+//  * Block r offsets its plane and lane pointers by row r; the cross-lane
+//    tables are the block's own. They live in shared memory: the per-(set, wave) fill
 //    ports (only the rows of sets that have a candidate are initialised,
 //    by those candidates), the lanes' lines and candidate flags, and the
 //    write owners, in a hash table of the <= N targeted slots (open
@@ -55,7 +60,7 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;   // one thread per lane, one block
+constexpr int MAX_THREADS = 1024;   // one thread per lane, one block a row
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 constexpr int MAX_DEVICES = 64;     // devices whose limits are cached
 
@@ -150,6 +155,19 @@ fused_tlb_kernel(int* tags, int* asids, int* lru,
   int* s_cand = s_vpn + n;                 // (n) pre-suppression candidates
   int* s_key = s_cand + n;                 // (n_hash) slot, -1 if free
   int* s_own = s_key + n_hash;             // (n_hash) highest writing lane
+
+  // this block's row: its planes and lanes
+  const size_t plane_off = size_t(blockIdx.x) * n_sets * n_ways;
+  const size_t lane_off = size_t(blockIdx.x) * n;
+  tags += plane_off;
+  asids += plane_off;
+  lru += plane_off;
+  vpn += lane_off;
+  asid += lane_off;
+  active += lane_off;
+  may_fill += lane_off;
+  hit_out += lane_off;
+  filled_out += lane_off;
 
   const int i = threadIdx.x;
   const bool lane = i < n;
@@ -279,12 +297,13 @@ int allow_smem(size_t smem) {
 template <int NW>
 int launch(int* tags, int* asids, int* lru, const int* vpn, const int* asid,
            const bool* active, const bool* may_fill, int* hit, int* filled,
-           int n_sets, int n_ways, int n, int n_waves, int track_asids,
-           int time, int hash_bits, size_t smem, cudaStream_t stream) {
+           int n_rows, int n_sets, int n_ways, int n, int n_waves,
+           int track_asids, int time, int hash_bits, size_t smem,
+           cudaStream_t stream) {
   const int err = allow_smem<NW>(smem);
   if (err != 0) return err;
   const int threads = ((n + 31) / 32) * 32;
-  fused_tlb_kernel<NW><<<1, threads, smem, stream>>>(
+  fused_tlb_kernel<NW><<<n_rows, threads, smem, stream>>>(
       tags, asids, lru, vpn, asid, active, may_fill, hit, filled, n_sets,
       n_ways, n, n_waves, track_asids, time, hash_bits);
   return int(cudaGetLastError());
@@ -296,16 +315,18 @@ int launch(int* tags, int* asids, int* lru, const int* vpn, const int* asid,
 // to launch (16, equal to n_ways) or 0 for the one that reads n_ways at
 // run time; the Python wrapper picks it
 // (`repro_torch/kernels/fused_tlb/kernel.py::instance`) and checks shapes,
-// types and alignment. The write-owner hash table has 2^hash_bits entries,
-// at least 2 n. Returns the launch's cudaError_t (0 on success).
+// types and alignment (of every row). The planes are (n_rows, n_sets,
+// n_ways) and the lanes (n_rows, n), contiguous; one block per row. The
+// write-owner hash table has 2^hash_bits entries, at least 2 n. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int fused_tlb_round(void* tags, void* asids, void* lru,
                                const void* vpn, const void* asid,
                                const void* active, const void* may_fill,
                                void* hit, void* filled, int instance,
-                               int n_sets, int n_ways, int n, int n_waves,
-                               int track_asids, int time, int hash_bits,
-                               void* stream) {
-  if (n < 1 || n > MAX_THREADS || n_waves < 1 || n % n_waves ||
+                               int n_rows, int n_sets, int n_ways, int n,
+                               int n_waves, int track_asids, int time,
+                               int hash_bits, void* stream) {
+  if (n_rows < 1 || n < 1 || n > MAX_THREADS || n_waves < 1 || n % n_waves ||
       (instance && instance != n_ways) || hash_bits < 1 || hash_bits > 16 ||
       (1 << hash_bits) < 2 * n)
     return int(cudaErrorInvalidValue);
@@ -322,8 +343,8 @@ extern "C" int fused_tlb_round(void* tags, void* asids, void* lru,
   auto* fl = static_cast<int*>(filled);
   auto st = static_cast<cudaStream_t>(stream);
 #define FUSED_TLB_LAUNCH(NW)                                                 \
-  launch<NW>(t, s, l, vp, as, ac, mf, ht, fl, n_sets, n_ways, n, n_waves,    \
-             track_asids, time, hash_bits, smem, st)
+  launch<NW>(t, s, l, vp, as, ac, mf, ht, fl, n_rows, n_sets, n_ways, n,    \
+             n_waves, track_asids, time, hash_bits, smem, st)
   switch (instance) {
     case 16: return FUSED_TLB_LAUNCH(16);
     case 0: return FUSED_TLB_LAUNCH(0);

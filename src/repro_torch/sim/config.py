@@ -1,15 +1,11 @@
 """Simulator configuration (paper Table 1, Maxwell-class); port of
 `repro.sim.config`.
 
-Besides the reference's fields, a config names the device it runs on and
-the implementation of the fused shared-cache round:
-
-  * `device`: None means "cuda" and raises where no card is visible
-    (`repro_torch.device.resolve_device`);
-  * `tlb_backend`: "cuda" is the hand-written kernel, "torch" the plain
-    PyTorch round. None resolves from the device. "cuda" on a CPU device
-    raises, and so does "torch" on a CUDA device: the plain round never
-    runs on the card's main path.
+Besides the reference's fields, a config names the device it runs on:
+None means "cuda" and raises where no card is visible
+(`repro_torch.device.resolve_device`). The fused shared-cache round
+follows the device alone (`kernels/fused_tlb/ops.py`): the CUDA kernel
+on the card, the plain PyTorch round on the CPU.
 """
 from __future__ import annotations
 
@@ -18,24 +14,6 @@ from typing import Optional, Tuple
 
 from repro_torch.core.design import Design, as_design, get_design
 from repro_torch.device import resolve_device
-
-TLB_BACKENDS = ("torch", "cuda")
-
-
-def resolve_tlb_backend(value: Optional[str], device: str) -> str:
-    """The fused-round backend for `device`; raises on a mismatch."""
-    want = "cuda" if device.startswith("cuda") else "torch"
-    if value is None:
-        return want
-    if value not in TLB_BACKENDS:
-        raise ValueError(
-            f"tlb_backend must be one of {TLB_BACKENDS}, got {value!r}")
-    if value != want:
-        raise ValueError(
-            f"tlb_backend={value!r} cannot run on device {device!r}: "
-            "'cuda' is the kernel and needs a CUDA device, 'torch' is the "
-            "plain round and runs only on the CPU")
-    return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +39,6 @@ class SimConfig:
     # a repro_torch.core.design.Design; a registered name is coerced
     design: Design = dataclasses.field(
         default_factory=lambda: get_design("gpu-mmu"))
-    tlb_backend: Optional[str] = None
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -71,10 +48,7 @@ class SimConfig:
                 f"got {self.n_apps}")
         if not isinstance(self.design, Design):
             object.__setattr__(self, "design", as_design(self.design))
-        dev = str(resolve_device(self.device))
-        object.__setattr__(self, "device", dev)
-        object.__setattr__(self, "tlb_backend",
-                           resolve_tlb_backend(self.tlb_backend, dev))
+        object.__setattr__(self, "device", str(resolve_device(self.device)))
 
     @property
     def total_warps(self) -> int:

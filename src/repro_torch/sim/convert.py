@@ -6,8 +6,16 @@ turn a reference tree fetched to the host (`jax.device_get` of a
 device, and back. The port's NamedTuples have the reference's fields in
 the reference's order, so the numpy trees also flatten identically.
 Nothing here imports the reference: trees are read by field name.
+
+A port state may carry a leading row axis (`memsys.init_state(cfg, dp,
+rows=R)`); a reference state is one row. `state_to_numpy(st, row=r)`
+gives row r shaped as the reference's state, `row_of` slices a row out
+of a tree already on the host, and `state_from_numpy` stacks a list of
+reference trees into a state with one row per tree.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,7 +25,8 @@ from repro_torch.core.design import DesignParams
 from repro_torch.core.dram_sched import DramState
 from repro_torch.core.tlb import TLBState
 from repro_torch.core.tokens import TokenState
-from repro_torch.sim.memsys import DataState, SimState, StatState, TransState
+from repro_torch.sim.memsys import (DataState, SimState, StatState,
+                                   TransState, map_state)
 
 # NamedTuple fields that are subtrees, by owning type
 _SUBTREES = {
@@ -30,27 +39,40 @@ _SUBTREES = {
 
 
 def _from_numpy(cls, tree, device):
+    """One tree, or a list of trees stacked on a new leading row axis."""
     sub = _SUBTREES.get(cls, {})
+    many = isinstance(tree, list)
+
+    def field(f):
+        return [getattr(x, f) for x in tree] if many else getattr(tree, f)
+
     return cls(*(
-        _from_numpy(sub[f], getattr(tree, f), device) if f in sub
-        else torch.tensor(np.asarray(getattr(tree, f)), device=device)
+        _from_numpy(sub[f], field(f), device) if f in sub
+        else torch.tensor(np.stack(field(f)) if many
+                          else np.asarray(field(f)), device=device)
         for f in cls._fields))
 
 
 def _to_numpy(tree):
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to_numpy(x) for x in tree))
-    return tree.detach().cpu().numpy()
+    return map_state(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def row_of(tree, row: int):
+    """Row `row` of a state with a row axis (tensor or numpy leaves)."""
+    return map_state(lambda x: x[row], tree)
 
 
 def state_from_numpy(tree, device) -> SimState:
-    """A SimState-shaped tree of numpy leaves -> the port's SimState."""
+    """A SimState-shaped tree of numpy leaves -> the port's SimState; a
+    list of such trees -> a state with one row per tree, in order."""
     return _from_numpy(SimState, tree, device)
 
 
-def state_to_numpy(state: SimState) -> SimState:
-    """The port's SimState -> the same NamedTuples with numpy leaves."""
-    return _to_numpy(state)
+def state_to_numpy(state: SimState, row: Optional[int] = None) -> SimState:
+    """The port's SimState -> the same NamedTuples with numpy leaves: the
+    whole state, or row `row` of a state with a row axis (then shaped as
+    the reference's)."""
+    return _to_numpy(state if row is None else row_of(state, row))
 
 
 def tlb_from_numpy(tree, device) -> TLBState:
@@ -78,7 +100,8 @@ def design_params_to_numpy(dp: DesignParams) -> DesignParams:
 
 
 def params_mat_from_numpy(pm, device) -> torch.Tensor:
-    """(n_apps, N_FIELDS) int32 workload parameter matrix -> tensor."""
+    """(n_apps, N_FIELDS) int32 workload parameter matrix (rows: (R,
+    n_apps, N_FIELDS)) -> tensor."""
     return torch.tensor(np.asarray(pm, np.int32), device=device)
 
 

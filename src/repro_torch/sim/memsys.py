@@ -21,13 +21,24 @@ policy knobs (`DesignParams`) and the cycle counter are host values, so
 every branch of the reference's `lax.cond`/`jnp.where` on them is a
 Python branch here and a cycle runs without a host sync.
 
+Rows. Every state tensor has a leading row axis R: R independent
+simulations of one design (the rows of `runner.run_grid`, which the
+reference vmaps), each with its own workload matrix, stepped together.
+The stages are written over that axis, with no Python loop over rows:
+a cycle issues the same launches whatever R is, and the fused rounds run
+all rows in one launch. Per-lane scatters and gathers run along each
+row's own flattened table, so rows never collide. The rows share the
+cycle counter, as the reference's rows share a scan length, and the
+lane-to-app map (the oracle core split). A state made with
+`init_state(cfg, dp)` has no row axis: `step` runs it as one row.
+
 The fused rounds update the shared caches' planes (the L2$ and the PWC)
 in place; `step` consumes its input state.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,17 +56,17 @@ from repro_torch.sim.workloads import FIELD, gen_vpn
 DATA_WIDTH = 4           # divergent cache lines per memory instruction
 BIG = 1 << 30
 
-# packed walk-table columns: TransState.walk is (max_concurrent_walks, 4)
+# packed walk-table columns: TransState.walk is (R, max_concurrent_walks, 4)
 WVPN, WASID, WDONE, WMERGED = range(4)
 
-# packed per-app int32 counter plane: StatState.ints is (n_apps, N_INT)
+# packed per-app int32 counter plane: StatState.ints is (R, n_apps, N_INT)
 (I_L1_HIT, I_L1_MISS, I_L2_HIT, I_L2_MISS, I_BYP_HIT, I_BYP_PROBE,
  I_WALKS, I_DRAM_TLB_N, I_DRAM_DATA_N) = range(9)
 N_INT = 9
-# packed per-app float32 plane: StatState.floats is (n_apps, N_FLOAT)
+# packed per-app float32 plane: StatState.floats is (R, n_apps, N_FLOAT)
 F_WALK_LAT, F_STALL_PER_MISS, F_DRAM_TLB_LAT, F_DRAM_DATA_LAT = range(4)
 N_FLOAT = 4
-# shared (not per-app) counters: StatState.scalars is (N_SCALAR,)
+# shared (not per-app) counters: StatState.scalars is (R, N_SCALAR)
 S_L2C_TLB_HIT, S_L2C_TLB_PROBE, S_L2C_DATA_HIT, S_L2C_DATA_PROBE = range(4)
 N_SCALAR = 4
 
@@ -63,7 +74,7 @@ I32 = torch.int32
 
 
 # ---------------------------------------------------------------------------
-# layered state
+# layered state; shapes without the leading row axis R
 # ---------------------------------------------------------------------------
 
 class TransState(NamedTuple):
@@ -110,7 +121,8 @@ class StatState(NamedTuple):
 
 
 class SimState(NamedTuple):
-    t: torch.Tensor              # () int32; the caller keeps a host copy
+    t: torch.Tensor              # () int32, the same in every row; the
+                                 # caller keeps a host copy
     stall_until: torch.Tensor    # (W,) int32
     instr: torch.Tensor          # (W,) float32 retired instructions
     pos: torch.Tensor            # (W,) int32 stream position
@@ -160,12 +172,12 @@ def _consts(cfg: SimConfig) -> _Consts:
 
 
 @functools.lru_cache(maxsize=64)
-def _lanes(n: int, nw: int, device: str):
-    """(is_tlb, zeros int32, ones bool) for a round of n lanes whose first
-    nw are walk lanes."""
+def _lanes(n: int, nw: int, device: str, rows: int):
+    """(is_tlb (n,), zeros (rows, n) int32, ones (rows, n) bool) for a
+    round of n lanes whose first nw are walk lanes."""
     return (torch.arange(n, device=device) < nw,
-            torch.zeros(n, dtype=I32, device=device),
-            torch.ones(n, dtype=torch.bool, device=device))
+            torch.zeros((rows, n), dtype=I32, device=device),
+            torch.ones((rows, n), dtype=torch.bool, device=device))
 
 
 def init_trans(cfg: SimConfig) -> TransState:
@@ -201,9 +213,20 @@ def init_stats(n_apps: int, device) -> StatState:
     )
 
 
-def init_state(cfg: SimConfig, dp: DesignParams) -> SimState:
+def map_state(fn, tree):
+    """Apply `fn` to every tensor of a (nested) state NamedTuple."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_state(fn, x) for x in tree))
+    return fn(tree)
+
+
+def init_state(cfg: SimConfig, dp: DesignParams,
+               rows: Optional[int] = None) -> SimState:
+    """The cold-start state. `rows=None` gives the reference's single
+    state (no row axis); `rows=R` gives R identical rows, each tensor
+    (R, ...) and contiguous."""
     W, dev = cfg.total_warps, cfg.device
-    return SimState(
+    st = SimState(
         t=torch.zeros((), dtype=I32, device=dev),
         stall_until=torch.zeros(W, dtype=I32, device=dev),
         instr=torch.zeros(W, dtype=torch.float32, device=dev),
@@ -215,18 +238,25 @@ def init_state(cfg: SimConfig, dp: DesignParams) -> SimState:
         stats=init_stats(cfg.n_apps, dev),
         asid_of_app=torch.arange(cfg.n_apps, dtype=I32, device=dev),
     )
+    if rows is None:
+        return st
+    if rows < 1:
+        raise ValueError(f"rows must be >= 1, got {rows}")
+    return map_state(lambda x: x.repeat(rows, *(1,) * x.dim()), st)
 
 
 def _last_writer(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """(N,) bool: lane i is the highest lane writing idx[i] (idx in 0..n).
+    """(R, N) bool: lane i is the highest lane of its row writing idx[r, i]
+    (idx in 0..n).
 
     XLA's serial scatter lets the last of several lanes writing one slot
-    win; index_put_ gives duplicate indices no order, so the port resolves
-    them explicitly."""
-    order = torch.arange(idx.shape[0], device=idx.device)
-    owner = torch.full((n + 1,), -1, dtype=torch.long, device=idx.device)
-    owner.scatter_reduce_(0, idx, order, reduce="amax")
-    return owner[idx] == order
+    win; scatter_ gives duplicate indices no order, so the port resolves
+    them explicitly, row by row."""
+    R, N = idx.shape
+    order = torch.arange(N, device=idx.device)
+    owner = torch.full((R, n + 1), -1, dtype=torch.long, device=idx.device)
+    owner.scatter_reduce_(1, idx, order.expand(R, N), reduce="amax")
+    return owner.gather(1, idx) == order
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +264,8 @@ def _last_writer(idx: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class SchedOut(NamedTuple):
-    """One candidate memory instruction per core, all (n_cores,)."""
+    """One candidate memory instruction per core: (R, n_cores), but `app`
+    (n_cores,), the oracle split, the same in every row."""
     picked_warp: torch.Tensor    # global warp id
     slot: torch.Tensor           # warp slot within its core
     active: torch.Tensor         # bool: core found a ready warp
@@ -246,21 +277,23 @@ class SchedOut(NamedTuple):
 
 def warp_sched(cfg: SimConfig, params_mat, stall_until, pos, t: int,
                asid_of_app=None) -> SchedOut:
-    """GTO-like pick: per core, the ready warp that has waited longest."""
+    """GTO-like pick: per core, the ready warp that has waited longest.
+    params_mat: (R, n_apps, N_FIELDS); stall_until/pos: (R, W)."""
     C, wpc = cfg.n_cores, cfg.warps_per_core
+    R = stall_until.shape[0]
     k = _consts(cfg)
     waiting = torch.where(stall_until <= t, t - stall_until, -1)
-    wait_grid = waiting.reshape(C, wpc)
-    pick = wait_grid.argmax(1)
-    active = wait_grid.gather(1, pick[:, None])[:, 0] >= 0
-    pick = pick.to(I32)
-    picked_warp = k.core * wpc + pick
+    wait_grid = waiting.reshape(R, C, wpc)
+    pick = wait_grid.argmax(-1)
+    active = wait_grid.gather(-1, pick[..., None])[..., 0] >= 0
+    picked = k.core * wpc + pick                          # (R, C) int64
+    picked_warp = picked.to(I32)
     app = k.app                                          # oracle split (§6)
-    p = pos[picked_warp]
-    vpn = gen_vpn(params_mat[app], app, picked_warp, p, t)
-    asid = app if asid_of_app is None else asid_of_app[app]
-    return SchedOut(picked_warp=picked_warp, slot=pick, active=active,
-                    app=app, asid=asid, vpn=vpn, pos=p)
+    p = pos.gather(1, picked)
+    vpn = gen_vpn(params_mat[:, app], app, picked_warp, p, t)
+    asid = app.expand(R, C) if asid_of_app is None else asid_of_app[:, app]
+    return SchedOut(picked_warp=picked_warp, slot=pick.to(I32),
+                    active=active, app=app, asid=asid, vpn=vpn, pos=p)
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +302,8 @@ def warp_sched(cfg: SimConfig, params_mat, stall_until, pos, t: int,
 
 class TransProbe(NamedTuple):
     """Front half of translation: everything before the shared L2$/DRAM.
-    Walk lanes are wave-major ((walk_levels * C,), level slowest); they
-    are empty under the ideal design."""
+    Per core (R, C); walk lanes are wave-major ((R, walk_levels * C), level
+    slowest); they are empty under the ideal design."""
     l1_hit: torch.Tensor
     l1_miss: torch.Tensor
     l2_hit: torch.Tensor
@@ -282,9 +315,9 @@ class TransProbe(NamedTuple):
     first_match: torch.Tensor    # walk-table slot of the joined walk
     new_walk: torch.Tensor       # started a fresh walk
     queue_pen: torch.Tensor      # finite-walker-thread queue penalty
-    pwc_lat: torch.Tensor        # (C,) summed 5-cycle PWC-hit latencies
-    walk_lines: torch.Tensor     # (L*C,) PTE line ids, wave-major
-    walk_go: torch.Tensor        # (L*C,) bool: lanes that access the L2$
+    pwc_lat: torch.Tensor        # (R, C) summed 5-cycle PWC-hit latencies
+    walk_lines: torch.Tensor     # (R, L*C) PTE line ids, wave-major
+    walk_go: torch.Tensor        # (R, L*C) bool: lanes that access the L2$
     walk_tags: torch.Tensor      # (L*C,) page-walk depth tags (§5.3)
 
 
@@ -296,13 +329,13 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
     A cache the design does not use is skipped: the reference probes and
     fills it with an all-False mask, which leaves its state unchanged."""
     tr = cfg.design.translation
-    C = cfg.n_cores
     k = _consts(cfg)
     vpn, asid, active = sched.vpn, sched.asid, sched.active
+    R, C = vpn.shape
 
     # ---------------- L1 TLB bank --------------------------------------
     l1, l1_hit = tlb_mod.probe_bank(trans.l1, vpn, asid, active, t)
-    zb, zi = k.false_core, k.zeros_core
+    zb, zi = k.false_core.expand(R, C), k.zeros_core.expand(R, C)
     if tr.kind == "ideal":
         # every access hits: the walk machinery is not modelled at all
         return (trans._replace(l1=l1),
@@ -310,7 +343,8 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
                            l2_hit_eff=zb, need_walk=zb, merged=zb,
                            merge_done=zi, first_match=zi, new_walk=zb,
                            queue_pen=zi, pwc_lat=zi,
-                           walk_lines=k.zeros_walk, walk_go=k.ones_walk,
+                           walk_lines=k.zeros_walk.expand(R, 0),
+                           walk_go=k.ones_walk.expand(R, 0),
                            walk_tags=k.walk_tags))
     l1_miss = active & ~l1_hit
 
@@ -333,10 +367,11 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
     if use_l2:
         fill_l2 = need_walk
         if dp.tokens_on:
-            tok_per_core = tokens.tokens[sched.app] \
+            tok_per_core = tokens.tokens[:, sched.app] \
                 // k.cores_per_app[sched.app]
             has_tok = sched.slot < tok_per_core
-            gate = (has_tok & ~tokens.first_epoch) | tokens.first_epoch
+            first = tokens.first_epoch[:, None]
+            gate = (has_tok & ~first) | first
             fill_l2 = need_walk & gate
             byp_tlb = tlb_mod.fill(byp_tlb, vpn, asid, need_walk & ~gate, t)
         l2tlb = tlb_mod.fill(l2tlb, vpn, asid, fill_l2, t)
@@ -344,40 +379,42 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
     l1 = tlb_mod.fill_bank(l1, vpn, asid, l1_miss, t)
 
     # ---------------- MSHR merge: outstanding walk for same (vpn, asid)?
-    walk_vpn, walk_asid, walk_done = (trans.walk[:, WVPN],
-                                      trans.walk[:, WASID],
-                                      trans.walk[:, WDONE])
-    wmatch = (walk_vpn[None, :] == vpn[:, None]) & \
-             (walk_asid[None, :] == asid[:, None]) & \
-             (walk_done[None, :] > t)
-    merged = wmatch.any(1) & need_walk
+    walk_vpn, walk_asid, walk_done = (trans.walk[..., WVPN],
+                                      trans.walk[..., WASID],
+                                      trans.walk[..., WDONE])     # (R, WT)
+    wmatch = (walk_vpn[:, None, :] == vpn[..., None]) & \
+             (walk_asid[:, None, :] == asid[..., None]) & \
+             (walk_done[:, None, :] > t)                          # (R, C, WT)
+    merged = wmatch.any(-1) & need_walk
     merge_done = torch.where(
-        merged, torch.where(wmatch, walk_done[None, :], 0).amax(1), 0)
-    first_match = wmatch.to(I32).argmax(1).to(I32)
+        merged, torch.where(wmatch, walk_done[:, None, :], 0).amax(-1), 0)
+    first_match = wmatch.to(I32).argmax(-1).to(I32)
 
     new_walk = need_walk & ~merged
-    n_live = (walk_done > t).sum(dtype=I32)
+    n_live = (walk_done > t).sum(-1, dtype=I32)
     # walker occupancy queue penalty (finite walker threads)
     wt = tr.max_concurrent_walks
-    over = (n_live + new_walk.cumsum(0, dtype=I32) - wt).clamp(min=0)
+    over = (n_live[:, None] + new_walk.cumsum(-1, dtype=I32) - wt) \
+        .clamp(min=0)
     queue_pen = over * 30
 
     # ---------------- page-walk lanes (walk_levels dependent PTE lines)
     L = tr.walk_levels
     pte_lines = pt_mod.pte_line_addresses(
-        pt_mod.PageTableConfig(levels=L), asid, vpn)      # (C, L)
-    walk_lines = pte_lines.T.reshape(L * C)               # wave-major
-    walk_active = new_walk.repeat(L)
+        pt_mod.PageTableConfig(levels=L), asid, vpn)      # (R, C, L)
+    walk_lines = pte_lines.transpose(1, 2).reshape(R, L * C)  # wave-major
+    walk_active = new_walk.repeat(1, L)
 
     # fused probe+fill with per-(set, level) fill ports; PTE lines are
     # unique across levels, so the PWC is tag-only
     if dp.use_pwc:
+        _, zeros, ones = _lanes(L * C, L * C, cfg.device, R)
         pwc, pwc_hit, _ = tlb_mod.access_fused(
-            trans.pwc, walk_lines, k.zeros_walk, walk_active, k.ones_walk,
-            t, n_waves=L, track_asids=False, backend=cfg.tlb_backend)
+            trans.pwc, walk_lines, zeros, walk_active, ones, t,
+            n_waves=L, track_asids=False)
         walk_go = walk_active & ~pwc_hit
-        pwc_lat = 5 * (walk_active & pwc_hit).reshape(L, C) \
-            .sum(0, dtype=I32)
+        pwc_lat = 5 * (walk_active & pwc_hit).reshape(R, L, C) \
+            .sum(1, dtype=I32)
     else:
         pwc, walk_go, pwc_lat = trans.pwc, walk_active, zi
 
@@ -398,9 +435,9 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
 
 class DataFront(NamedTuple):
     """L1D outcome + the data lanes headed for the shared L2$."""
-    l1d_hit: torch.Tensor        # (C,) bool
-    go_l2d: torch.Tensor         # (C,) bool: reached the shared L2$
-    lines: torch.Tensor          # (DATA_WIDTH*C,) line ids, wave-major
+    l1d_hit: torch.Tensor        # (R, C) bool
+    go_l2d: torch.Tensor         # (R, C) bool: reached the shared L2$
+    lines: torch.Tensor          # (R, DATA_WIDTH*C) line ids, wave-major
 
 
 def datapath_front(cfg: SimConfig, params_mat, sched: SchedOut, t: int
@@ -408,14 +445,15 @@ def datapath_front(cfg: SimConfig, params_mat, sched: SchedOut, t: int
     """Draw the L1D outcome and generate the divergent line addresses."""
     pfn = pt_mod.translate(pt_mod.PageTableConfig(), sched.asid, sched.vpn)
     r = _mix(u32(pfn) + u32(sched.pos))
-    l1d_hit = (r % 1024) < params_mat[sched.app, FIELD["l1d_hit_milli"]]
+    l1d_hit = (r % 1024) < params_mat[:, sched.app, FIELD["l1d_hit_milli"]]
     go_l2d = sched.active & ~l1d_hit
     # one memory instruction touches DATA_WIDTH lines, serviced in
     # parallel; `pfn * 32` wraps int32 by design
-    r3 = _mix(r[None, :] + _consts(cfg).line_salt)        # (K, C)
-    lines = wrap_i32(pfn.to(torch.int64) * 32 + r3 % 32)
+    r3 = _mix(r[:, None, :] + _consts(cfg).line_salt)     # (R, K, C)
+    lines = wrap_i32(pfn.to(torch.int64)[:, None, :] * 32 + r3 % 32)
+    R, C = pfn.shape
     return DataFront(l1d_hit=l1d_hit, go_l2d=go_l2d,
-                     lines=lines.reshape(DATA_WIDTH * pfn.shape[0]))
+                     lines=lines.reshape(R, DATA_WIDTH * C))
 
 
 # ---------------------------------------------------------------------------
@@ -424,13 +462,13 @@ def datapath_front(cfg: SimConfig, params_mat, sched: SchedOut, t: int
 
 class MemOut(NamedTuple):
     """Per-core splits of the fused round (walk part + data part)."""
-    walk_lat: torch.Tensor       # (C,) summed walk-level L2$/DRAM latency
-    dram_tlb_lat: torch.Tensor   # (C,) float32 DRAM latency on walk path
-    dram_tlb_n: torch.Tensor     # (C,) int32
-    l2c_tlb_hit: torch.Tensor    # () walk-request hits in the L2$
-    l2c_tlb_probe: torch.Tensor  # () walk-request probes of the L2$
-    dlat: torch.Tensor           # (C,) max-over-lines data latency
-    l2d_hit: torch.Tensor        # (C,) bool: any data line hit the L2$
+    walk_lat: torch.Tensor       # (R, C) summed walk-level L2$/DRAM latency
+    dram_tlb_lat: torch.Tensor   # (R, C) float32 DRAM latency on walk path
+    dram_tlb_n: torch.Tensor     # (R, C) int32
+    l2c_tlb_hit: torch.Tensor    # (R,) walk-request hits in the L2$
+    l2c_tlb_probe: torch.Tensor  # (R,) walk-request probes of the L2$
+    dlat: torch.Tensor           # (R, C) max-over-lines data latency
+    l2d_hit: torch.Tensor        # (R, C) bool: any data line hit the L2$
 
 
 def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
@@ -441,18 +479,19 @@ def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
 
     Lanes are wave-major (walk level 0..L-1, then data line 0..K-1, each
     wave C cores wide), so lane order is the sequential model's program
-    order. Either lane group may be empty."""
-    C = app.shape[0]
-    nw = walk_lines.shape[0]
-    nd = data_lines.shape[0]
+    order. Either lane group may be empty. app (C,) and walk_tags are the
+    same in every row; the other lanes are (R, ...)."""
+    R, C = go_l2d.shape
+    nw = walk_lines.shape[1]
+    nd = data_lines.shape[1]
     L, K = nw // C, nd // C
-    dev = app.device
+    dev = go_l2d.device
 
-    lines = torch.cat([walk_lines, data_lines])
-    go = torch.cat([walk_go, go_l2d.repeat(K)])
+    lines = torch.cat([walk_lines, data_lines], 1)
+    go = torch.cat([walk_go, go_l2d.repeat(1, K)], 1)
     apps = app.repeat(L + K)
-    is_tlb, zeros, ones = _lanes(nw + nd, nw, cfg.device)
-    depth = torch.cat([walk_tags, zeros[nw:]])
+    is_tlb, zeros, ones = _lanes(nw + nd, nw, cfg.device, R)
+    depth = torch.cat([walk_tags, zeros[0, nw:]])
 
     l2c, dram, bp_state = data.l2c, data.dram, data.bypass
     # depth 0 (data) always fills; with bypass off every lane may fill
@@ -471,7 +510,7 @@ def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
     tag = wrap_i32(lines.to(torch.int64) * cfg.l2_sets + key)
     l2c, hit, _ = tlb_mod.access_fused(
         l2c, tag, zeros, go, may_fill, t, n_waves=max(L + K, 1),
-        track_asids=False, backend=cfg.tlb_backend)
+        track_asids=False)
     lat = hit.to(I32) * cfg.lat_l2_cache
     miss = go & ~hit
 
@@ -485,23 +524,23 @@ def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
     bp_state = bp_mod.record(bp_state, depth, hit, go)
 
     # ---------------- split back per core ------------------------------
-    zi = torch.zeros(C, dtype=I32, device=dev)
-    zs = torch.zeros((), dtype=I32, device=dev)
+    zi = torch.zeros((R, C), dtype=I32, device=dev)
+    zs = torch.zeros(R, dtype=I32, device=dev)
     if nw:
-        lat_w = lat[:nw].reshape(L, C)
-        went = walk_go.reshape(L, C) & ~hit[:nw].reshape(L, C)
-        walk_lat = lat_w.sum(0, dtype=I32)    # inactive lanes contribute 0
-        dram_tlb_lat = torch.where(went, lat_w, 0).sum(0, dtype=I32) \
+        lat_w = lat[:, :nw].reshape(R, L, C)
+        went = walk_go.reshape(R, L, C) & ~hit[:, :nw].reshape(R, L, C)
+        walk_lat = lat_w.sum(1, dtype=I32)    # inactive lanes contribute 0
+        dram_tlb_lat = torch.where(went, lat_w, 0).sum(1, dtype=I32) \
             .to(torch.float32)
-        dram_tlb_n = went.sum(0, dtype=I32)
-        l2c_tlb_hit = (hit[:nw] & walk_go).sum(dtype=I32)
-        l2c_tlb_probe = walk_go.sum(dtype=I32)
+        dram_tlb_n = went.sum(1, dtype=I32)
+        l2c_tlb_hit = (hit[:, :nw] & walk_go).sum(-1, dtype=I32)
+        l2c_tlb_probe = walk_go.sum(-1, dtype=I32)
     else:
         walk_lat, dram_tlb_n, l2c_tlb_hit, l2c_tlb_probe = zi, zi, zs, zs
         dram_tlb_lat = zi.to(torch.float32)
     if nd:
-        dlat = lat[nw:].reshape(K, C).amax(0)
-        l2d_hit = hit[nw:].reshape(K, C).any(0)
+        dlat = lat[:, nw:].reshape(R, K, C).amax(1)
+        l2d_hit = hit[:, nw:].reshape(R, K, C).any(1)
     else:
         dlat = zi
         l2d_hit = zi.to(torch.bool)
@@ -519,8 +558,8 @@ def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
 
 class TransOut(NamedTuple):
     """Per-core translation results + walk-level L2$ counters."""
-    trans_lat: torch.Tensor      # (C,) translation latency
-    l1_hit: torch.Tensor         # (C,) bool
+    trans_lat: torch.Tensor      # (R, C) translation latency
+    l1_hit: torch.Tensor         # (R, C) bool
     l1_miss: torch.Tensor
     l2_hit: torch.Tensor
     byp_hit: torch.Tensor
@@ -528,11 +567,11 @@ class TransOut(NamedTuple):
     need_walk: torch.Tensor
     merged: torch.Tensor         # joined an in-flight walk
     new_walk: torch.Tensor       # started a fresh walk
-    walk_done_new: torch.Tensor  # (C,) completion time of fresh walks
-    dram_tlb_lat: torch.Tensor   # (C,) float32 DRAM latency on walk path
-    dram_tlb_n: torch.Tensor     # (C,) int32
-    l2c_hit: torch.Tensor        # () walk-request hits in the L2$
-    l2c_probe: torch.Tensor      # () walk-request probes of the L2$
+    walk_done_new: torch.Tensor  # (R, C) completion time of fresh walks
+    dram_tlb_lat: torch.Tensor   # (R, C) float32 DRAM latency on walk path
+    dram_tlb_n: torch.Tensor     # (R, C) int32
+    l2c_hit: torch.Tensor        # (R,) walk-request hits in the L2$
+    l2c_probe: torch.Tensor      # (R,) walk-request probes of the L2$
 
 
 def translation_commit(cfg: SimConfig, trans: TransState, probe: TransProbe,
@@ -540,12 +579,12 @@ def translation_commit(cfg: SimConfig, trans: TransState, probe: TransProbe,
                        ) -> Tuple[TransState, TransOut]:
     """Resolve walk latencies, install fresh walks, settle trans latency."""
     tr = cfg.design.translation
-    C = cfg.n_cores
+    R, C = sched.active.shape
 
     if tr.kind == "ideal":
         trans_lat = sched.active.to(I32) * cfg.lat_l1_tlb
-        zi = torch.zeros(C, dtype=I32, device=trans_lat.device)
-        zs = torch.zeros((), dtype=I32, device=trans_lat.device)
+        zi = torch.zeros((R, C), dtype=I32, device=trans_lat.device)
+        zs = torch.zeros(R, dtype=I32, device=trans_lat.device)
         return trans, TransOut(
             trans_lat=trans_lat, l1_hit=probe.l1_hit, l1_miss=probe.l1_miss,
             l2_hit=probe.l2_hit, byp_hit=probe.byp_hit,
@@ -560,21 +599,23 @@ def translation_commit(cfg: SimConfig, trans: TransState, probe: TransProbe,
     # install new walks into free slots (expired entries are free); lanes
     # that install nothing go to the trash row
     wt = tr.max_concurrent_walks
-    free = trans.walk[:, WDONE] <= t
-    order_slots = probe.new_walk.cumsum(0) - 1
+    free = trans.walk[..., WDONE] <= t                    # (R, WT)
+    order_slots = probe.new_walk.cumsum(-1) - 1
     slots = torch.arange(wt, device=free.device)
-    free_sorted = torch.where(free, slots, BIG).sort().values
-    slot_for = torch.where(probe.new_walk,
-                           free_sorted[order_slots.clamp(0, wt - 1)], BIG)
+    free_sorted = torch.where(free, slots, BIG).sort(-1).values
+    slot_for = torch.where(
+        probe.new_walk,
+        free_sorted.gather(1, order_slots.clamp(0, wt - 1)), BIG)
     slot = torch.where(probe.new_walk & (slot_for < wt), slot_for, wt)
     slot = torch.where(_last_writer(slot, wt), slot, wt)
     rows = torch.stack([sched.vpn, sched.asid, walk_done_new,
-                        torch.ones_like(walk_done_new)], 1)    # (C, 4)
-    walk = torch.cat([trans.walk, trans.walk[:1]]).index_put_((slot,), rows)
-    walk = walk[:wt]
+                        torch.ones_like(walk_done_new)], -1)  # (R, C, 4)
+    walk = torch.cat([trans.walk, trans.walk[:, :1]], 1)
+    walk.scatter_(1, slot[..., None].expand(R, C, 4), rows)
     # bump merge counters on the joined in-flight walks
-    walk.view(-1).index_add_(0, probe.first_match.long() * 4 + WMERGED,
-                             probe.merged.to(I32))
+    walk[..., WMERGED].scatter_add_(1, probe.first_match.long(),
+                                    probe.merged.to(I32))
+    walk = walk[:, :wt]
 
     # ---------------- translation latency ------------------------------
     trans_lat = torch.where(
@@ -600,7 +641,7 @@ def translation_commit(cfg: SimConfig, trans: TransState, probe: TransProbe,
 # ---------------------------------------------------------------------------
 
 class DataOut(NamedTuple):
-    """Per-core data-access results, all (n_cores,)."""
+    """Per-core data-access results, all (R, n_cores)."""
     data_lat: torch.Tensor
     l1d_hit: torch.Tensor
     go_l2d: torch.Tensor         # bool: reached the shared L2$
@@ -635,24 +676,24 @@ def accumulate_stats(stats: StatState, n_apps: int, sched: SchedOut,
         i32(tout.need_walk), i32(tout.byp_hit),
         i32(tout.l1_miss & ~tout.l2_hit), i32(tout.new_walk),
         tout.dram_tlb_n, i32(dout.go_l2d),
-    ], 1) * i32(act)[:, None]
+    ], -1) * i32(act)[..., None]                          # (R, C, N_INT)
     floats_rows = torch.stack([
         torch.where(tout.new_walk, tout.walk_done_new - t, 0)
         .to(torch.float32),
         tout.merged.to(torch.float32),
         tout.dram_tlb_lat,
         torch.where(dout.go_l2d, dout.dlat, 0).to(torch.float32),
-    ], 1) * act.to(torch.float32)[:, None]
+    ], -1) * act.to(torch.float32)[..., None]
     app = sched.app
     return StatState(
         ints=stats.ints + torch.zeros_like(stats.ints).index_add_(
-            0, app, ints_rows),
+            1, app, ints_rows),
         floats=stats.floats + torch.zeros_like(stats.floats).index_add_(
-            0, app, floats_rows),
+            1, app, floats_rows),
         scalars=stats.scalars + torch.stack([
             tout.l2c_hit, tout.l2c_probe,
-            (dout.go_l2d & dout.l2d_hit).sum(dtype=I32),
-            dout.go_l2d.sum(dtype=I32)]),
+            (dout.go_l2d & dout.l2d_hit).sum(-1, dtype=I32),
+            dout.go_l2d.sum(-1, dtype=I32)], -1),
     )
 
 
@@ -662,14 +703,15 @@ def accumulate_stats(stats: StatState, n_apps: int, sched: SchedOut,
 
 def retire(stall_until, instr, pos, sched: SchedOut, total_lat, gap, t: int):
     """Stall issued warps until their latency resolves; credit instrs.
-    Each core picks a distinct warp, so the writes never collide."""
-    w = sched.picked_warp
+    Each core picks a distinct warp, so a row's writes never collide."""
+    w = sched.picked_warp.long()
     act = sched.active
-    stall_until = stall_until.index_put(
-        (w,), torch.where(act, t + total_lat, stall_until[w]))
-    instr = instr.index_put(
-        (w,), instr[w] + torch.where(act, (1 + gap).to(torch.float32), 0.0))
-    pos = pos.index_put((w,), pos[w] + act.to(I32))
+    stall_until = stall_until.scatter(
+        1, w, torch.where(act, t + total_lat, stall_until.gather(1, w)))
+    instr = instr.scatter(
+        1, w, instr.gather(1, w)
+        + torch.where(act, (1 + gap).to(torch.float32), 0.0))
+    pos = pos.scatter(1, w, pos.gather(1, w) + act.to(I32))
     return stall_until, instr, pos
 
 
@@ -684,13 +726,17 @@ def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
     if not (any_adaptive and t % cfg.design.epoch_cycles == 0):
         return tokens, data
     na = cfg.n_apps
-    live = (trans.walk[:, WDONE] > t).to(I32)
-    census = torch.stack([live, trans.walk[:, WMERGED] * live], 1)
+    walk = trans.walk                                     # (R, WT, 4)
+    R, WT = walk.shape[:2]
+    live = (walk[..., WDONE] > t).to(I32)
+    census = torch.stack([live, walk[..., WMERGED] * live], -1)
     # slot recovery: ASIDs are slot + k*n_apps after churn; invalid rows
     # (asid -1) land on slot n_apps-1 with live=0 and add nothing
-    census = torch.zeros((na, 2), dtype=I32, device=live.device).index_add_(
-        0, (trans.walk[:, WASID] % na).long(), census)
-    dram = dram_sched.update_pressure(data.dram, census[:, 0], census[:, 1])
+    slot = (walk[..., WASID] % na).long()
+    census = torch.zeros((R, na, 2), dtype=I32, device=live.device) \
+        .scatter_add_(1, slot[..., None].expand(R, WT, 2), census)
+    dram = dram_sched.update_pressure(data.dram, census[..., 0],
+                                      census[..., 1])
     tokens = tok_mod.epoch_update(tokens, _consts(cfg).warps_per_app,
                                   step_frac=dp.step_frac)
     return tokens, data._replace(dram=dram,
@@ -703,10 +749,18 @@ def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
 
 def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
          cycle: int) -> SimState:
-    """One cycle. params_mat: (n_apps, N_FIELDS) int32 workload params;
-    dp: the design's policy knobs; cycle: the host copy of `state.t`.
+    """One cycle of every row. params_mat: (R, n_apps, N_FIELDS) int32
+    workload params, one matrix per row of `state`; dp: the design's
+    policy knobs; cycle: the host copy of `state.t`. A state without the
+    row axis (`init_state(cfg, dp)`) takes an (n_apps, N_FIELDS) matrix
+    and runs as one row.
 
-    Issues no host sync; updates the shared caches' planes in place."""
+    Issues no host sync, and the same launches whatever R is; updates the
+    shared caches' planes in place."""
+    if params_mat.dim() == 2:               # one run without a row axis
+        out = step(cfg, dp, params_mat[None],
+                   map_state(lambda x: x[None], state), cycle)
+        return map_state(lambda x: x[0], out)
     t = cycle + 1
     sched = warp_sched(cfg, params_mat, state.stall_until, state.pos, t,
                        asid_of_app=state.asid_of_app)
@@ -719,7 +773,7 @@ def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
     trans_st, tout = translation_commit(cfg, trans_st, probe, mem, sched, t)
     dout = _data_out(cfg, dfront, mem)
 
-    gap = params_mat[sched.app, FIELD["gap"]]
+    gap = params_mat[:, sched.app, FIELD["gap"]]
     total_lat = tout.trans_lat + dout.data_lat + gap
     stall_until, instr, pos = retire(
         state.stall_until, state.instr, state.pos, sched, total_lat, gap, t)
@@ -733,4 +787,3 @@ def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
     return SimState(t=state.t + 1, stall_until=stall_until, instr=instr,
                     pos=pos, trans=trans_st, data=data_st, tokens=tokens,
                     stats=stats, asid_of_app=state.asid_of_app)
-

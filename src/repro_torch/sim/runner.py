@@ -1,31 +1,62 @@
-"""Simulation runner: N-app mixes and the solo/pair wrappers.
+"""Simulation runner: N-app mixes, solo/pair wrappers, grids, typed
+experiments.
 
-Port of the main path of `repro.sim.runner`: `run_mix` co-runs
-len(benches) applications (None entries are idle partners) and returns
-the per-app stats dict of the reference, computed on the host in numpy
-by the same `_stats`. The reference's `lax.scan` over the cycles is a
-Python loop over `memsys.step`; the cycle counter is kept on the host,
-so the loop issues no host sync until the final state is fetched.
+Port of `repro.sim.runner`'s main path and grid layer:
+
+* Raw: `run_mix(design, benches)` co-runs len(benches) applications
+  (None entries are idle partners) and returns the per-app stats dict of
+  the reference, computed on the host in numpy by the same `_stats`.
+  `run_pair` / `run_solo` wrap it; `run_batch` runs many same-size mixes
+  of one design in one pass; `run_grid` runs a designs x mixes cross
+  product; `predict_mixes` is the serving oracle's entry point.
+* Typed: `Experiment(design, mixes, cycles).run()` returns an
+  `ExperimentResult` of `MixResult`/`AppStats` objects with the derived
+  metrics; `sweep(designs, mixes)` drives many designs.
+
+A pass is `simulate` over a state with a leading row axis: one row per
+mix, all rows stepped together by one Python loop over the cycles, so a
+cycle issues the same launches whatever the row count (the reference's
+`lax.scan` over a vmapped step). The cycle counter is kept on the host,
+so a pass issues no host sync until its final state is fetched, in one
+transfer. The design's policy knobs are host scalars that the step
+branches on (`core/design.py`), so the rows of one pass share one
+design: `run_grid` runs one pass per (design, chunk of mixes), where the
+reference runs one per static-signature group.
+
+`TRACE_COUNT` counts PLANS, not traces: the port compiles nothing, and
+a plan is one (canonical `SimConfig`, row count) that the runner has set
+up, keyed by `canonical_design(static_signature(d))` as the reference
+keys its compiles. So the reference's laws hold: an 8-design sweep over
+one mix size sets up one plan per signature group, a repeated sweep
+none, and a `predict_mixes` loop with `pad_rows` one for its lifetime.
 
 The entry points run on the card unless `device` names another one:
 `device=None` means "cuda" and raises where no card is visible.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+import dataclasses
+import functools
+from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
-from repro_torch.core.design import Design, DesignParams, as_design, \
-    design_params
+from repro_torch.core.design import (Design, DesignParams, as_design,
+                                     canonical_design, design_params,
+                                     static_signature)
 from repro_torch.device import DeviceLike
 from repro_torch.sim.config import SimConfig
-from repro_torch.sim.convert import state_to_numpy
+from repro_torch.sim.convert import row_of, state_to_numpy
 from repro_torch.sim.memsys import SimState, init_state, step
 from repro_torch.sim.workloads import app_matrix
 
-DesignLike = Union[str, Design]
+DesignLike = Union[str, Design]  # legacy DesignPoint also accepted
+
+# plans set up so far: one per distinct (canonical SimConfig, row count);
+# tests pin "one plan per signature group" against it
+TRACE_COUNT = 0
 
 
 class ZeroCycleError(RuntimeError):
@@ -39,15 +70,49 @@ class NonFiniteStatsError(RuntimeError):
 @torch.inference_mode()
 def simulate(cfg: SimConfig, dp: DesignParams,
              params_mat: torch.Tensor) -> SimState:
-    """Run `cfg.sim_cycles` cycles from the cold start; returns the state."""
-    st = init_state(cfg, dp)
+    """Run `cfg.sim_cycles` cycles from the cold start; returns the state.
+
+    params_mat: (R, n_apps, N_FIELDS), one workload matrix per row, gives
+    a state of R rows; an (n_apps, N_FIELDS) matrix gives the reference's
+    single state, without the row axis."""
+    rows = params_mat.shape[0] if params_mat.dim() == 3 else None
+    st = init_state(cfg, dp, rows)
     for cycle in range(cfg.sim_cycles):
         st = step(cfg, dp, params_mat, st, cycle)
     return st
 
 
+def _canonical(cfg: SimConfig) -> SimConfig:
+    """The config with its design replaced by its signature group's
+    canonical representative: the plan key. The stages read only
+    static-signature fields of the design; its knobs travel in `dp`."""
+    return dataclasses.replace(
+        cfg, design=canonical_design(static_signature(cfg.design)))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(ccfg: SimConfig, rows: int):
+    """The pass of `rows` rows under the canonical config `ccfg`: a
+    callable (dp, (rows, n_apps, N_FIELDS) params) -> final state.
+    Setting one up bumps `TRACE_COUNT`; a later pass of the same key
+    reuses it (the CUDA graph of a pass will be captured per plan)."""
+    global TRACE_COUNT
+    TRACE_COUNT += 1
+    return functools.partial(simulate, ccfg)
+
+
+def _run_rows(cfg: SimConfig, dp: DesignParams,
+              mixes: Sequence[Tuple[Optional[str], ...]]) -> SimState:
+    """One pass of `mixes` (one row each) under `cfg`'s design; returns
+    the final state on the host (numpy leaves), in one transfer."""
+    pm = torch.tensor(np.stack([_mix_matrix(m) for m in mixes]),
+                      device=cfg.device)
+    return state_to_numpy(_plan(_canonical(cfg), len(mixes))(dp, pm))
+
+
 def _stats(cfg: SimConfig, st: SimState) -> Dict[str, np.ndarray]:
-    """Per-app stats from a state with numpy leaves (`state_to_numpy`)."""
+    """Per-app stats from a one-row state with numpy leaves
+    (`state_to_numpy(st, row=r)` or `row_of`)."""
     na = cfg.n_apps
     warp_app = np.repeat(np.asarray(cfg.app_of_core), cfg.warps_per_core)
     t = float(st.t)
@@ -90,17 +155,228 @@ def _stats(cfg: SimConfig, st: SimState) -> Dict[str, np.ndarray]:
     }
 
 
+def _mix_matrix(benches: Sequence[Optional[str]]) -> np.ndarray:
+    """(n_apps, N_FIELDS) parameter matrix; None entries are idle apps."""
+    return app_matrix(list(benches))
+
+
+def _config(design: DesignLike, n_apps: int, cycles: int,
+            device: DeviceLike) -> SimConfig:
+    return SimConfig(n_apps=n_apps, sim_cycles=cycles,
+                     design=as_design(design), device=device)
+
+
+def _same_size(bench_mixes) -> int:
+    sizes = {len(m) for m in bench_mixes}
+    if len(sizes) != 1:
+        raise ValueError(f"all mixes must have the same size, got {sizes}")
+    return sizes.pop()
+
+
 def run_mix(design: DesignLike, benches: Sequence[Optional[str]],
             cycles: int = 60_000, device: DeviceLike = None) -> Dict:
-    """Co-run N apps under a design; returns per-app stats.
+    """Co-run N apps under a design; returns per-app stats: a pass of one
+    row.
 
     `benches` may contain None for idle partners (the §6 `IPC_alone`
     emulation keeps the core split but removes the partner's traffic)."""
-    cfg = SimConfig(n_apps=len(benches), sim_cycles=cycles,
-                    design=as_design(design), device=device)
-    pm = torch.tensor(app_matrix(list(benches)), device=cfg.device)
-    return _stats(cfg, state_to_numpy(simulate(cfg, design_params(cfg.design),
-                                               pm)))
+    cfg = _config(design, len(benches), cycles, device)
+    final = _run_rows(cfg, design_params(cfg.design), [tuple(benches)])
+    return _stats(cfg, row_of(final, 0))
+
+
+def run_batch(design: DesignLike,
+              bench_mixes: Sequence[Tuple[Optional[str], ...]],
+              cycles: int = 60_000, device: DeviceLike = None) -> List[Dict]:
+    """Run many same-size workload mixes of one design in one pass, one
+    row each. An entry may contain None for a solo run (idle partner)."""
+    cfg = _config(design, _same_size(bench_mixes), cycles, device)
+    final = _run_rows(cfg, design_params(cfg.design), bench_mixes)
+    return [_stats(cfg, row_of(final, i)) for i in range(len(bench_mixes))]
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureRecord:
+    """A sweep cell (or whole chunk) that failed.
+
+    Fail-soft sweeps return these IN PLACE of stats/results instead of
+    aborting the remaining passes: one poisoned design point costs its
+    own cells, not the grid. The record carries everything needed to
+    reproduce the failure standalone."""
+    designs: Tuple[str, ...]      # design names sharing the failed call
+    n_apps: int
+    cycles: int
+    error_type: str               # exception class name
+    message: str
+    stage: str                    # e.g. "grid-chunk", "experiment-batch"
+
+    def __bool__(self) -> bool:   # a failed cell is falsy; stats are truthy
+        return False
+
+    def reraise(self) -> None:
+        raise RuntimeError(
+            f"[{self.stage}] designs={self.designs} n_apps={self.n_apps} "
+            f"cycles={self.cycles}: {self.error_type}: {self.message}")
+
+
+def _chunk_width(n: int, cap: int) -> int:
+    """Equal-width chunks only (a ragged tail would be a second plan): n
+    itself within the cap, else its largest divisor within the cap."""
+    cap = max(cap, 1)
+    return n if n <= cap else max(w for w in range(1, cap + 1) if n % w == 0)
+
+
+def _check_devices(devices: Optional[int]) -> None:
+    if devices not in (None, 1):
+        raise NotImplementedError(
+            f"devices={devices}: rows over several CUDA devices are not "
+            "ported yet (ROADMAP.md, Queue 1); run on one device")
+
+
+def run_grid(designs: Sequence[DesignLike],
+             bench_mixes: Sequence[Tuple[Optional[str], ...]],
+             cycles: int = 60_000,
+             max_rows: int = 64,
+             devices: Optional[int] = None,
+             fail_soft: bool = False,
+             device: DeviceLike = None
+             ) -> List[List[Union[Dict, "FailureRecord"]]]:
+    """Run the full designs x mixes cross product; returns `stats[d][m]`
+    aligned with the inputs, bit for bit equal to
+    `run_mix(designs[d], bench_mixes[m], cycles)`.
+
+    Each design runs its mixes as the rows of one pass, with one plan per
+    (signature group, row count). A design with more than `max_rows`
+    mixes runs in chunks of EQUAL width, the largest divisor of the mix
+    count within the cap (the reference's rule), so every chunk reuses
+    one plan. Rows are independent, so chunking cannot change them.
+
+    `devices`: None or 1; rows over several devices are not ported yet
+    and raise NotImplementedError.
+
+    `fail_soft=True` catches a failing chunk (set-up error, execution
+    error, or corrupt stats) into a `FailureRecord` placed in every cell
+    the chunk covered, and CONTINUES with the remaining chunks. Default
+    False keeps raise-on-first-error semantics.
+    """
+    _check_devices(devices)
+    ds = [as_design(d) for d in designs]
+    n = _same_size(bench_mixes)
+    if not ds:
+        return []
+    M = len(bench_mixes)
+    width = _chunk_width(M, max_rows)
+    out: List[List[Union[Dict, FailureRecord]]] = [[None] * M for _ in ds]
+    for di, d in enumerate(ds):
+        for lo in range(0, M, width):
+            try:
+                cfg = _config(d, n, cycles, device)
+                final = _run_rows(cfg, design_params(d),
+                                  bench_mixes[lo:lo + width])
+                for j in range(width):
+                    out[di][lo + j] = _stats(cfg, row_of(final, j))
+            except Exception as e:  # noqa: BLE001 — fail-soft boundary
+                if not fail_soft:
+                    raise
+                rec = FailureRecord(
+                    designs=(d.name,), n_apps=n, cycles=cycles,
+                    error_type=type(e).__name__, message=str(e),
+                    stage="grid-chunk")
+                for j in range(lo, lo + width):
+                    out[di][j] = rec
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MixPrediction:
+    """One candidate co-placement's predicted contention metrics.
+
+    Produced by `predict_mixes` (the serving oracle's entry point into
+    the simulator): per-app slowdown/speedup are §6 semantics — the solo
+    baseline keeps the app's core share (idle partners) and removes
+    memory contention, so `slowdown[i]` isolates what SHARING the memory
+    system costs app i in this mix."""
+
+    benches: Tuple[str, ...]
+    weighted_speedup: float
+    max_slowdown: float
+    slowdown: Tuple[float, ...]   # aligned with benches
+    ipc: Tuple[float, ...]
+    solo_ipc: Tuple[float, ...]
+
+
+def predict_mixes(design: DesignLike,
+                  mixes: Sequence[Sequence[str]],
+                  cycles: int = 2_000,
+                  slots: Optional[int] = None,
+                  pad_rows: int = 0,
+                  fail_soft: bool = False,
+                  solo_cache: Optional[Dict[str, float]] = None,
+                  device: DeviceLike = None
+                  ) -> List[Union[MixPrediction, FailureRecord]]:
+    """Predict contention for candidate co-placement mixes in ONE
+    `run_grid` call (the oracle-facing helper).
+
+    Every mix (a tuple of bench names, no Nones) is padded with idle
+    partners to a common `slots` count, so candidates of different
+    co-run degrees share one pass with the IPC_alone solo-baseline rows
+    their benches need; each app holds the same 1/slots core share in its
+    mix AND in its baseline, so slowdowns compare across sizes (§6).
+
+    `pad_rows > 0` pads the ROW COUNT up to the next multiple by
+    repeating the last row, keeping the pass's shape stable across
+    calls: a serving loop that predicts every decision epoch sets up one
+    plan for the oracle's lifetime (`TRACE_COUNT`).
+
+    `solo_cache` (mutated in place when given) carries solo IPCs across
+    calls so previously-seen benches don't re-simulate their baselines.
+    With `fail_soft=True` a failing chunk yields `FailureRecord`s in
+    place of predictions (and poisons only the mixes that needed it).
+    """
+    mixes = [tuple(b for b in m if b is not None) for m in mixes]
+    if not mixes:
+        return []
+    if any(not m for m in mixes):
+        raise ValueError("every candidate mix needs at least one bench")
+    n = max(len(m) for m in mixes)
+    slots = n if slots is None else slots
+    if n > slots:
+        raise ValueError(f"a candidate mix has {n} apps > slots={slots}")
+    solo_cache = {} if solo_cache is None else solo_cache
+    need_solo = sorted({b for m in mixes for b in m} - set(solo_cache))
+    rows = [m + (None,) * (slots - len(m)) for m in mixes]
+    rows += [(b,) + (None,) * (slots - 1) for b in need_solo]
+    if pad_rows > 0:
+        target = -(-len(rows) // pad_rows) * pad_rows
+        rows += [rows[-1]] * (target - len(rows))
+    grid = run_grid([design], rows, cycles, fail_soft=fail_soft,
+                    device=device)[0]
+
+    solo_fail: Dict[str, FailureRecord] = {}
+    for b, s in zip(need_solo, grid[len(mixes):len(mixes) + len(need_solo)]):
+        if isinstance(s, FailureRecord):
+            solo_fail[b] = s
+        else:
+            solo_cache[b] = float(s["ipc"][0])
+    out: List[Union[MixPrediction, FailureRecord]] = []
+    for m, s in zip(mixes, grid[:len(mixes)]):
+        if isinstance(s, FailureRecord):
+            out.append(s)
+            continue
+        bad = next((solo_fail[b] for b in m if b in solo_fail), None)
+        if bad is not None:
+            out.append(bad)
+            continue
+        solo = tuple(solo_cache[b] for b in m)
+        ipc = tuple(float(s["ipc"][i]) for i in range(len(m)))
+        slow = tuple(a / max(i, 1e-9) for a, i in zip(solo, ipc))
+        out.append(MixPrediction(
+            benches=m,
+            weighted_speedup=float(sum(i / max(a, 1e-9)
+                                       for i, a in zip(ipc, solo))),
+            max_slowdown=float(max(slow)),
+            slowdown=slow, ipc=ipc, solo_ipc=solo))
+    return out
 
 
 def run_pair(design: DesignLike, bench_a: str, bench_b: str,
@@ -126,3 +402,298 @@ def max_slowdown(mix_stats, *solos) -> float:
     """Unfairness: worst per-app IPC_alone / IPC over the mix (any N)."""
     return float(max(s["ipc"][0] / max(mix_stats["ipc"][i], 1e-9)
                      for i, s in enumerate(solos)))
+
+
+# ---------------------------------------------------------------------------
+# typed results layer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AppStats:
+    """One application's slice of a mix run. `ipc_alone` is the §6
+    IPC_alone baseline (same core share, idle partners) when the
+    experiment computed solo baselines, else None."""
+
+    bench: Optional[str]          # None = idle partner slot
+    index: int                    # position in the mix
+    ipc: float
+    ipc_alone: Optional[float]
+    l1_tlb_hit_rate: float
+    l2_tlb_hit_rate: float        # shared L2 TLB (Table 3)
+    bypass_hit_rate: float        # token bypass cache (Table 4)
+    walk_lat: float               # mean page-walk latency (cycles)
+    walks: float
+    stalls_per_miss: float
+    dram_tlb_lat: float           # mean DRAM latency, walk requests
+    dram_data_lat: float          # mean DRAM latency, data requests
+    tokens: int                   # final TLB-fill token count
+
+    @property
+    def speedup(self) -> float:
+        """IPC / IPC_alone (this app's weighted-speedup contribution)."""
+        if self.ipc_alone is None:
+            raise ValueError("run the experiment with solo baselines")
+        return self.ipc / max(self.ipc_alone, 1e-9)
+
+    @property
+    def slowdown(self) -> float:
+        """IPC_alone / IPC (this app's unfairness contribution)."""
+        if self.ipc_alone is None:
+            raise ValueError("run the experiment with solo baselines")
+        return self.ipc_alone / max(self.ipc, 1e-9)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MixResult:
+    """One mix under one design: per-app `AppStats` + mix-level metrics.
+    The raw stats dict stays reachable via `.raw` / `res[key]`."""
+
+    design: Design
+    benches: Tuple[Optional[str], ...]
+    cycles: int
+    apps: Tuple[AppStats, ...]
+    raw: Mapping[str, np.ndarray]
+
+    def __getitem__(self, key: str):
+        return self.raw[key]
+
+    def app(self, bench: str) -> AppStats:
+        """First AppStats running `bench` (mixes may repeat a bench)."""
+        for a in self.apps:
+            if a.bench == bench:
+                return a
+        raise KeyError(f"{bench!r} not in mix {self.benches}")
+
+    @property
+    def real_apps(self) -> Tuple[AppStats, ...]:
+        """Apps excluding idle-partner (None) slots."""
+        return tuple(a for a in self.apps if a.bench is not None)
+
+    @property
+    def l2c_tlb_hit_rate(self) -> float:
+        """L2 data-cache hit rate for TLB (walk) requests (Table 5)."""
+        return float(self.raw["l2c_tlb_hit_rate"])
+
+    @property
+    def l2c_data_hit_rate(self) -> float:
+        return float(self.raw["l2c_data_hit_rate"])
+
+    def weighted_speedup(self) -> float:
+        """Sum of IPC / IPC_alone over the real apps (paper Eq. WS)."""
+        return float(sum(a.speedup for a in self.real_apps))
+
+    def unfairness(self) -> float:
+        """Max per-app slowdown over the real apps (paper max slowdown)."""
+        return float(max(a.slowdown for a in self.real_apps))
+
+    max_slowdown = unfairness
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExperimentResult:
+    """All mixes of one `Experiment`, aligned with its mix list."""
+
+    design: Design
+    cycles: int
+    results: Tuple[MixResult, ...]
+    solo_ipc: Mapping[Tuple[str, int], float]  # (bench, n_apps) -> IPC_alone
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __getitem__(self, i) -> MixResult:
+        return self.results[i]
+
+    def mean_weighted_speedup(self) -> float:
+        return float(np.mean([r.weighted_speedup() for r in self.results]))
+
+    def mean_unfairness(self) -> float:
+        return float(np.mean([r.unfairness() for r in self.results]))
+
+
+def _normalize_mixes(mixes) -> Tuple[Tuple[Optional[str], ...], ...]:
+    """Normalize a mix list: bare bench strings become 1-app mixes."""
+    if isinstance(mixes, str):
+        raise TypeError(
+            f"mixes must be a sequence of mixes, got the bare string "
+            f"{mixes!r} — did you mean [({mixes!r},)]?")
+    norm = tuple((m,) if isinstance(m, str) else tuple(m) for m in mixes)
+    if not norm:
+        raise ValueError("need at least one mix")
+    return norm
+
+
+class _NPlan(NamedTuple):
+    """Per-n_apps slice of an experiment: which simulation rows to run
+    (user mixes + IPC_alone solo mixes) and how to map them back."""
+    items: Tuple[Tuple[int, Tuple[Optional[str], ...]], ...]  # (orig idx, mix)
+    rows: Tuple[Tuple[Optional[str], ...], ...]   # mixes + solo_mixes
+    n_mixes: int
+    solo_shaped: frozenset                        # user mixes that ARE solos
+    solo_mixes: Tuple[Tuple[Optional[str], ...], ...]
+
+
+def _mix_plan(mixes, solo_baselines: bool) -> Dict[int, _NPlan]:
+    """Group normalized mixes by n_apps and plan each group's simulation
+    rows, deduplicating solo baselines against solo-shaped user mixes."""
+    by_n: Dict[int, List[Tuple[int, Tuple[Optional[str], ...]]]] = {}
+    for i, m in enumerate(mixes):
+        by_n.setdefault(len(m), []).append((i, m))
+    plans: Dict[int, _NPlan] = {}
+    for n, items in sorted(by_n.items()):
+        ms = [m for _, m in items]
+        benches = sorted({b for m in ms for b in m
+                          if b is not None}) if solo_baselines else []
+        # a user mix that IS the canonical solo shape (bench + idle
+        # partners) doubles as its own baseline — don't simulate twice
+        solo_shaped = {m for m in ms if m[0] is not None and not any(m[1:])}
+        solo_mixes = [(b,) + (None,) * (n - 1) for b in benches]
+        solo_mixes = [sm for sm in solo_mixes if sm not in solo_shaped]
+        plans[n] = _NPlan(items=tuple(items),
+                          rows=tuple(ms) + tuple(solo_mixes),
+                          n_mixes=len(ms),
+                          solo_shaped=frozenset(solo_shaped),
+                          solo_mixes=tuple(solo_mixes))
+    return plans
+
+
+def _mk_mix_result(design: Design, cycles: int, benches, s, solo_ipc,
+                   n: int) -> MixResult:
+    apps = tuple(
+        AppStats(
+            bench=b, index=i,
+            ipc=float(s["ipc"][i]),
+            ipc_alone=solo_ipc.get((b, n)),
+            l1_tlb_hit_rate=float(s["l1_hit_rate"][i]),
+            l2_tlb_hit_rate=float(s["l2_hit_rate"][i]),
+            bypass_hit_rate=float(s["byp_hit_rate"][i]),
+            walk_lat=float(s["walk_lat"][i]),
+            walks=float(s["walks"][i]),
+            stalls_per_miss=float(s["stalls_per_miss"][i]),
+            dram_tlb_lat=float(s["dram_tlb_lat"][i]),
+            dram_data_lat=float(s["dram_data_lat"][i]),
+            tokens=int(s["tokens"][i]),
+        ) for i, b in enumerate(benches))
+    return MixResult(design=design, benches=tuple(benches),
+                     cycles=cycles, apps=apps, raw=s)
+
+
+def _assemble_result(design: Design, cycles: int, n_results: int,
+                     plans: Dict[int, _NPlan],
+                     stats_by_n: Dict[int, List[Dict]]) -> ExperimentResult:
+    """Fold per-row stats back into an ExperimentResult (shared by the
+    per-design `Experiment.run` and the grid-path `sweep`)."""
+    results: List[Optional[MixResult]] = [None] * n_results
+    solo_ipc: Dict[Tuple[str, int], float] = {}
+    for n, plan in sorted(plans.items()):
+        stats = stats_by_n[n]
+        for m, s in zip(plan.rows[:plan.n_mixes], stats):
+            if m in plan.solo_shaped:
+                solo_ipc[(m[0], n)] = float(s["ipc"][0])
+        for sm, s in zip(plan.solo_mixes, stats[plan.n_mixes:]):
+            solo_ipc[(sm[0], n)] = float(s["ipc"][0])
+        for (i, m), s in zip(plan.items, stats[:plan.n_mixes]):
+            results[i] = _mk_mix_result(design, cycles, m, s, solo_ipc, n)
+    return ExperimentResult(design=design, cycles=cycles,
+                            results=tuple(results), solo_ipc=solo_ipc)
+
+
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """Typed façade over `run_batch`: a design × a list of mixes.
+
+    `design` may be a registered name, a `Design`, or a legacy
+    `DesignPoint`; `mixes` entries are bench tuples (a bare bench name
+    means a 1-app run; None entries are idle partners). Mixes of
+    different sizes are allowed — each (design, n_apps) group is one
+    pass, with the solo baselines as rows of the same pass.
+
+        exp = Experiment("mask", [("3DS", "BLK"), ("MUM", "RED")])
+        res = exp.run()
+        res.mean_weighted_speedup()
+        res[0].app("3DS").l2_tlb_hit_rate
+    """
+
+    design: DesignLike
+    mixes: Tuple[Tuple[Optional[str], ...], ...]
+    cycles: int = 60_000
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "design", as_design(self.design))
+        object.__setattr__(self, "mixes", _normalize_mixes(self.mixes))
+
+    def run(self, solo_baselines: bool = True, fail_soft: bool = False
+            ) -> Union[ExperimentResult, FailureRecord]:
+        """`fail_soft=True` converts a failure (set-up, execution, or
+        corrupt stats) into this experiment's `FailureRecord` instead of
+        raising, so sweep loops over many experiments keep going."""
+        plans = _mix_plan(self.mixes, solo_baselines)
+        # one pass per (design, n_apps): mixes + solos as its rows
+        stats_by_n = {}
+        for n, plan in plans.items():
+            try:
+                stats_by_n[n] = run_batch(self.design, plan.rows,
+                                          self.cycles, device=self.device)
+            except Exception as e:  # noqa: BLE001 — fail-soft boundary
+                if not fail_soft:
+                    raise
+                return FailureRecord(
+                    designs=(self.design.name,), n_apps=n,
+                    cycles=self.cycles, error_type=type(e).__name__,
+                    message=str(e), stage="experiment-batch")
+        return _assemble_result(self.design, self.cycles, len(self.mixes),
+                                plans, stats_by_n)
+
+
+def sweep(designs: Sequence[DesignLike],
+          mixes: Sequence, cycles: int = 60_000,
+          solo_baselines: bool = True,
+          grid: bool = True,
+          devices: Optional[int] = None,
+          fail_soft: bool = False,
+          device: DeviceLike = None
+          ) -> Dict[str, Union[ExperimentResult, FailureRecord]]:
+    """Run several designs over the same mixes, keyed by design name.
+
+    With `grid=True` (default) every (design, n_apps) slice — every mix
+    of that size, solo baselines included — runs through `run_grid`, one
+    pass per design and chunk. `grid=False` keeps the per-design
+    `Experiment` loop; results are bit for bit identical either way.
+
+    `devices`: None or 1 (see `run_grid`); more needs the grid path and
+    is not ported yet.
+
+    `fail_soft=True`: a failing design (or per-design experiment with
+    `grid=False`) becomes a `FailureRecord` VALUE for its name, and every
+    other design's `ExperimentResult` is still computed and returned."""
+    ds: List[Design] = []
+    for d in designs:
+        dd = as_design(d)
+        if any(x.name == dd.name for x in ds):
+            raise ValueError(f"duplicate design name in sweep: {dd.name!r}")
+        ds.append(dd)
+    if not grid:
+        if devices and devices > 1:
+            raise ValueError("devices > 1 requires the grid path "
+                             "(sweep(grid=True))")
+        return {d.name: Experiment(d, tuple(mixes), cycles, device).run(
+            solo_baselines=solo_baselines, fail_soft=fail_soft)
+            for d in ds}
+    _check_devices(devices)
+    norm = _normalize_mixes(mixes)
+    plans = _mix_plan(norm, solo_baselines)
+    stats = {n: run_grid(ds, plan.rows, cycles, devices=devices,
+                         fail_soft=fail_soft, device=device)
+             for n, plan in plans.items()}        # stats[n][design][row]
+    out: Dict[str, Union[ExperimentResult, FailureRecord]] = {}
+    for i, d in enumerate(ds):
+        rows_by_n = {n: stats[n][i] for n in plans}
+        failed = [s for rows in rows_by_n.values() for s in rows
+                  if isinstance(s, FailureRecord)]
+        out[d.name] = failed[0] if failed else _assemble_result(
+            d, cycles, len(norm), plans, rows_by_n)
+    return out

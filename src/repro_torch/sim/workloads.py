@@ -4,13 +4,15 @@ The paper's 27 benchmarks (Table 2) fall into four locality categories by
 (L1 TLB, L2 TLB) miss rates. One deterministic generator per benchmark:
 parameters are drawn per category with a stable per-name md5 jitter.
 Streams mix sequential striding, a hot page set, a per-group warm set and
-uniform-random far pages. The parameter tables are host numpy; `gen_vpn`
-runs on tensors.
+uniform-random far pages. The parameter tables and the mix generators
+(`mix_workloads`, `pair_workloads`, `hmr_class`, copies of the
+reference's JAX-free ones) are host numpy; `gen_vpn` runs on tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -128,8 +130,10 @@ def app_matrix(names) -> np.ndarray:
 def gen_vpn(params_row, app_id, warp_id, pos, t: int) -> torch.Tensor:
     """Deterministic VPN for one access, int32.
 
-    params_row: (..., N_FIELDS) int32 rows of the issuing apps; app_id,
-    warp_id, pos: int32 tensors; t: the host cycle counter."""
+    params_row: (..., N_FIELDS) int32 rows of the issuing apps (the
+    simulator passes (R, n_cores, N_FIELDS), gathered from the rows'
+    (R, n_apps, N_FIELDS) matrices); app_id, warp_id, pos: int32 tensors
+    broadcasting against it; t: the host cycle counter."""
     f = lambda name: params_row[..., FIELD[name]]  # noqa: E731
     ws, hot, hot_m = f("ws_pages"), f("hot_pages"), f("hot_milli")
     warm, warm_m, seq_m = f("warm_pages"), f("warm_milli"), f("seq_milli")
@@ -157,3 +161,39 @@ def gen_vpn(params_row, app_id, warp_id, pos, t: int) -> torch.Tensor:
                                 rnd_vpn)))
     # per-app base offset keeps address spaces visibly disjoint
     return vpn + app_id * (1 << 22)
+
+
+def mix_workloads(seed: int = 7, n_mixes: int = 35,
+                  n_apps: int = 2) -> List[Tuple[str, ...]]:
+    """Random N-app bundles avoiding low-low apps (paper §6 generalized).
+
+    The n_apps=2 draw sequence is the paper sweep's historical pairing."""
+    rng = np.random.RandomState(seed)
+    eligible = [b for b in BENCHES if CATEGORY[b] != ("low", "low")]
+    if n_apps > len(eligible):
+        raise ValueError(f"n_apps={n_apps} exceeds {len(eligible)} "
+                         "eligible benchmarks")
+    if n_mixes > math.comb(len(eligible), n_apps):
+        raise ValueError(
+            f"n_mixes={n_mixes} exceeds the "
+            f"{math.comb(len(eligible), n_apps)} distinct {n_apps}-app "
+            "bundles")
+    seen, out = set(), []
+    while len(out) < n_mixes:
+        mix = tuple(str(b) for b in rng.choice(eligible, n_apps,
+                                               replace=False))
+        if frozenset(mix) in seen:
+            continue
+        seen.add(frozenset(mix))
+        out.append(mix)
+    return out
+
+
+def pair_workloads(seed: int = 7, n_pairs: int = 35) -> List[Tuple[str, str]]:
+    """35 random pairs avoiding low-low apps (paper §6)."""
+    return mix_workloads(seed, n_pairs, 2)
+
+
+def hmr_class(mix: Tuple[str, ...]) -> int:
+    """0..len(mix) HMR: count of high-L1,high-L2 apps in the bundle."""
+    return sum(1 for b in mix if CATEGORY[b] == ("high", "high"))

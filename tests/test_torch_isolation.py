@@ -4,8 +4,9 @@
   module out of `sys.modules` (checked in a fresh interpreter), and
   `chip_smoke.py` and the `scripts/torch_*.py` import neither.
 * `run_mix` with the default device runs on CUDA or raises; it never
-  carries on on the CPU. A kernel backend that does not match the device
-  raises.
+  carries on on the CPU. The fused round follows the device of its
+  tensors alone: a CPU state runs the plain round, and a plane on any
+  other device goes to the kernel's wrapper, which launches or raises.
 """
 import ast
 import os
@@ -17,7 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.sim import config, runner  # noqa: E402
+from repro_torch.core.design import design_params  # noqa: E402
+from repro_torch.kernels.fused_tlb import kernel as kernel_mod  # noqa: E402
+from repro_torch.kernels.fused_tlb import ops as fused_ops  # noqa: E402
+from repro_torch.sim import config, memsys, runner  # noqa: E402
+from repro_torch.sim.workloads import app_matrix  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -71,12 +76,34 @@ def test_default_device_raises_without_cuda():
         config.SimConfig()
 
 
-def test_backend_must_match_device():
-    with pytest.raises(ValueError, match="cannot run on device"):
-        config.SimConfig(device="cpu", tlb_backend="cuda")
-    with pytest.raises(ValueError, match="cannot run on device"):
-        config.resolve_tlb_backend("torch", "cuda")
-    with pytest.raises(ValueError, match="must be one of"):
-        config.SimConfig(device="cpu", tlb_backend="xla")
-    assert config.resolve_tlb_backend(None, "cuda:0") == "cuda"
-    assert config.SimConfig(device="cpu").tlb_backend == "torch"
+def test_fused_round_follows_the_device(monkeypatch):
+    """A CPU state's cycles run the plain round (no kernel launch); a plane
+    that is not on the CPU is never run by the plain round: the wrapper
+    refuses it before any build."""
+    calls = []
+    plain = fused_ops.fused_tlb_access_ref
+    monkeypatch.setattr(fused_ops, "fused_tlb_access_ref",
+                        lambda *a, **k: calls.append(a[0].shape)
+                        or plain(*a, **k))
+    cfg = config.SimConfig(design="pwc", sim_cycles=3, device="cpu")
+    dp = design_params(cfg.design)
+    pm = torch.tensor(app_matrix(["3DS", "BLK"]))[None].repeat(2, 1, 1)
+    before = kernel_mod.fused_tlb_round.launches
+    st = memsys.init_state(cfg, dp, rows=2)
+    for cycle in range(3):
+        st = memsys.step(cfg, dp, pm, st, cycle)
+    assert kernel_mod.fused_tlb_round.launches == before
+    # the PWC and the L2$ round each cycle, both rows in one call
+    assert calls == [(2, 64, 16), (2, 1024, 16)] * 3
+
+    def no_build(*_):
+        raise AssertionError("the wrapper built the kernel before checking")
+    monkeypatch.setattr(kernel_mod._build, "load", no_build)
+    kernel_mod._entry.cache_clear()
+    plane = torch.zeros((2, 4, 16), dtype=torch.int32, device="meta")
+    lanes = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    mask = torch.zeros((2, 8), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_ops.fused_tlb_access(plane, plane, plane, lanes, lanes, mask,
+                                   mask, 0)
+    assert calls == [(2, 64, 16), (2, 1024, 16)] * 3
