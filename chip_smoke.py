@@ -43,6 +43,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                `pair_workloads(n_pairs=20)` and 20 of their solos), and
                at R = 40 a `torch.profiler` window's device time, kernels
                and device busy share per step;
+ 13. churn  -- (run right after phase 12, on its build) the churn runner,
+               `fused_tlb` in every cycle of every segment: `run_trace(
+               "mask", [("3DS", "BLK")] * 4, seg_cycles=300)` gives the
+               1200-cycle mask golden float-hex with launches == rounds;
+               a seeded trace (`churn_schedule(seed=3, n_segments=8,
+               n_slots=4)`, 250 cycles a segment, a fault plan with every
+               kind and flush level, `audit=True`) equals the same trace
+               through the CPU path (the plain round) in every snapshot
+               and its final state, bit for bit, with launches == its
+               2000 rounds and the final `asid_of_app` == slot + 4 x the
+               slot's changes; a 3-segment `pwc` trace (a full PWC flush
+               at each boundary) equals its CPU run with 2 launches a
+               cycle; one boundary at full width runs with no host sync
+               (`set_sync_debug_mode("error")`); the trace's simulated
+               cycles per second and a boundary's device ms (20 in a
+               `torch.profiler` window);
   5. flash  -- the `flash_attention` kernels against their plain PyTorch
                version on the card, each check on the route its dtype
                selects (bf16: the wgmma kernel `flash_attention_sm90.cu`;
@@ -1482,6 +1498,221 @@ def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
                            "kernels": kernels, "wall_ms": wall_ms})
 
 
+CHURN_SEED, CHURN_SEGMENTS, CHURN_SLOTS, CHURN_SEG = 3, 8, 4, 250
+CHURN_GOLDEN = ([("3DS", "BLK")] * 4, 300)      # 4 x 300 = mask's golden
+CHURN_PWC = ([("3DS", "BLK"), ("3DS", None), ("MUM", "BLK")], 100)
+TEARDOWN_BOUNDARIES = 20
+
+
+def churn_plan():
+    """Every fault kind and every flush level, at the seeded trace's
+    boundaries (slots < 4, segments < 8)."""
+    from repro_torch.sim.faults import Fault, FaultPlan
+    return FaultPlan(seed=7, faults=(
+        Fault("kill", 2, app=1), Fault("tlb_flush", 3, level=0),
+        Fault("tlb_flush", 3, level=1), Fault("tlb_corrupt", 4, app=2),
+        Fault("drop_dram", 5), Fault("walk_clobber", 6, app=3),
+        Fault("tlb_flush", 7, level=2), Fault("kill", 7, app=0)))
+
+
+def churn_asids(schedule, plan, n_apps):
+    """The final asid_of_app a trace must end with: slot + n_apps x the
+    slot's membership changes (kills included)."""
+    changes = [0] * n_apps
+    for k in range(1, len(schedule)):
+        for s in range(n_apps):
+            killed = any(f.kind == "kill" and f.segment == k and f.app == s
+                         for f in plan.faults)
+            changes[s] += schedule[k][s] != schedule[k - 1][s] or killed
+    return [s + n_apps * c for s, c in enumerate(changes)]
+
+
+def tree_leaves(tree, path="state"):
+    if hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from tree_leaves(getattr(tree, f), f"{path}.{f}")
+    else:
+        yield path, tree
+
+
+def same_trace(np, got, want, what):
+    """Two TraceResults bit for bit: every snapshot, the final state."""
+    from repro_torch.sim.convert import state_to_numpy
+    if len(got.segments) != len(want.segments):
+        raise AssertionError(f"{what}: snapshot counts differ")
+    for k, (a, b) in enumerate(zip(got.segments, want.segments)):
+        for key in b:
+            if np.asarray(a[key]).tobytes() != np.asarray(b[key]).tobytes():
+                raise AssertionError(f"{what}: snapshot {k} {key} differs")
+    for (path, a), (_, b) in zip(
+            tree_leaves(state_to_numpy(got.final_state)),
+            tree_leaves(state_to_numpy(want.final_state))):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{what}: final {path} differs")
+
+
+def teardown_boundary(torch, cfg):
+    """A boundary at full width on the card with every fault kind on (the
+    upper end of a boundary's work): a callable on a state with one row."""
+    from repro_torch.core.design import design_params
+    from repro_torch.sim import faults
+    from repro_torch.sim.memsys import apply_membership_change
+    dp = design_params(cfg.design)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    fops = faults.FaultOps(
+        kill=torch.tensor([[False, True, False, False]], device="cuda"),
+        flush=torch.ones((1, 3), dtype=torch.bool, device="cuda"),
+        corrupt=torch.ones(1, dtype=torch.bool, device="cuda"),
+        corrupt_set=torch.tensor([5], **i32),
+        corrupt_way=torch.tensor([3], **i32),
+        corrupt_vpn=torch.tensor([12345], **i32),
+        corrupt_app=torch.tensor([2], **i32),
+        drop_dram=torch.ones(1, dtype=torch.bool, device="cuda"),
+        clobber=torch.ones(1, dtype=torch.bool, device="cuda"),
+        clobber_row=torch.tensor([1], **i32),
+        clobber_vpn=torch.tensor([999], **i32),
+        clobber_app=torch.tensor([3], **i32),
+        clobber_delta=torch.tensor([500], **i32))
+    change = torch.tensor([[True, False, False, True]], device="cuda")
+
+    def boundary(state):
+        with torch.inference_mode():
+            state = apply_membership_change(cfg, dp, state,
+                                            change | fops.kill)
+            return faults.apply_state_faults(cfg, state, fops)
+    return boundary
+
+
+def teardown_profile(torch, boundary, state, n):
+    """(device ms, kernels, wall ms) per boundary over `n` boundaries in a
+    `torch.profiler` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    boundary(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            boundary(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return dev_ms / n, len(kernels) / n, wall * 1e3 / n
+
+
+def churn_phase(torch, np, card, fused_tlb_round, mix_rate):
+    """Phase 13: the churn runner on the card, `fused_tlb` in every cycle
+    of every segment; `mix_rate` is phase 3's cycles/s of the same run as
+    one `run_mix` (mask, 3DS+BLK, 1200 cycles). Returns the churn entry of
+    the fused_tlb line."""
+    from repro_torch.sim import memsys, runner
+    from repro_torch.sim.config import SimConfig
+    from repro_torch.sim.workloads import churn_schedule
+
+    # ---- constant membership: 4 segments == the 1200-cycle golden ------
+    schedule, seg = CHURN_GOLDEN
+    fused_tlb_round.launches = 0
+    t0 = time.perf_counter()
+    tr = runner.run_trace("mask", schedule, seg_cycles=seg, device="cuda")
+    golden_s = time.perf_counter() - t0
+    golden_launches = fused_tlb_round.launches
+    for key, want in GOLDEN["mask"].items():
+        got = [x.hex() for x in
+               np.asarray(tr.stats[key], np.float64).ravel().tolist()]
+        if got != want:
+            raise AssertionError(f"run_trace mask 4 x {seg}: {key} {got} "
+                                 f"!= {want}")
+    if golden_launches != len(schedule) * seg:
+        raise AssertionError(f"run_trace mask launched fused_tlb "
+                             f"{golden_launches} times for "
+                             f"{len(schedule) * seg} rounds")
+    log(f"[churn] run_trace mask 4 x {seg} == the 1200-cycle golden "
+        f"float-hex; fused_tlb launches {golden_launches} == rounds; "
+        f"{golden_s:.2f} s, {len(schedule) * seg / golden_s:.1f} simulated "
+        f"cycles/s (the same run as one run_mix in phase 3: "
+        f"{mix_rate:.1f}) [{card}]")
+
+    # ---- seeded churn + every fault kind, audited: card == CPU ---------
+    schedule = churn_schedule(seed=CHURN_SEED, n_segments=CHURN_SEGMENTS,
+                              n_slots=CHURN_SLOTS)
+    plan = churn_plan()
+    rounds = CHURN_SEGMENTS * CHURN_SEG
+    fused_tlb_round.launches = 0
+    t0 = time.perf_counter()
+    card_tr = runner.run_trace("mask", schedule, seg_cycles=CHURN_SEG,
+                               fault_plan=plan, audit=True,
+                               return_state=True, device="cuda")
+    trace_s = time.perf_counter() - t0
+    launches = fused_tlb_round.launches
+    if launches != rounds:
+        raise AssertionError(f"churn trace launched fused_tlb {launches} "
+                             f"times for {rounds} rounds")
+    t0 = time.perf_counter()
+    cpu_tr = runner.run_trace("mask", schedule, seg_cycles=CHURN_SEG,
+                              fault_plan=plan, audit=True,
+                              return_state=True, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_trace(np, card_tr, cpu_tr, "churn trace card vs CPU")
+    asids = card_tr.final_state.asid_of_app.tolist()
+    want = churn_asids(schedule, plan, CHURN_SLOTS)
+    if asids != want:
+        raise AssertionError(f"final asid_of_app {asids} != {want}")
+    rate = rounds / trace_s
+    log(f"[churn] seeded trace (churn_schedule seed {CHURN_SEED}, "
+        f"{CHURN_SEGMENTS} x {CHURN_SEG} cycles, {CHURN_SLOTS} slots: "
+        f"{schedule}) with every fault kind ({len(plan.faults)} faults), "
+        f"audited: card == CPU (plain round) in all {CHURN_SEGMENTS} "
+        f"snapshots and the final state, bit for bit; asid_of_app {asids}; "
+        f"fused_tlb launches {launches} == rounds {rounds}; card "
+        f"{trace_s:.2f} s, {rate:.1f} simulated cycles/s (snapshots and "
+        f"audit included); CPU {cpu_s:.2f} s [{card}]")
+
+    # ---- pwc: the PWC round after full flushes -------------------------
+    schedule, seg = CHURN_PWC
+    fused_tlb_round.launches = 0
+    card_pwc = runner.run_trace("pwc", schedule, seg_cycles=seg,
+                                return_state=True, device="cuda")
+    pwc_launches = fused_tlb_round.launches
+    same_trace(np, card_pwc, runner.run_trace(
+        "pwc", schedule, seg_cycles=seg, return_state=True, device="cpu"),
+        "pwc churn trace card vs CPU")
+    if pwc_launches != 2 * len(schedule) * seg:
+        raise AssertionError(f"pwc churn trace launched fused_tlb "
+                             f"{pwc_launches} times for "
+                             f"{2 * len(schedule) * seg} rounds")
+    log(f"[churn] pwc trace {schedule} x {seg} cycles (a full PWC flush "
+        f"at each boundary): card == CPU bit for bit; fused_tlb launches "
+        f"{pwc_launches} == 2 rounds a cycle")
+
+    # ---- one boundary: no host sync; its device time --------------------
+    cfg = SimConfig(n_apps=CHURN_SLOTS, design="mask", device="cuda")
+    boundary = teardown_boundary(torch, cfg)
+    state = memsys.map_state(lambda x: x[None], card_tr.final_state)
+    boundary(state)                   # sets up the config's constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        boundary(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dev_ms, kernels, wall_ms = teardown_profile(torch, boundary, state,
+                                                TEARDOWN_BOUNDARIES)
+    log(f"[churn] one boundary at full width (teardown of 2 slots + a "
+        f"kill, every fault kind; {TEARDOWN_BOUNDARIES} in "
+        f"torch.profiler): {dev_ms:.4f} ms on the device, {kernels:.0f} "
+        f"kernels, {wall_ms:.3f} ms wall; no host sync under "
+        f"set_sync_debug_mode('error') [{card}]")
+    return dict(launches=launches, rounds=rounds,
+                golden_launches=golden_launches, pwc_launches=pwc_launches,
+                cycles_per_s=rate, golden_cycles_per_s=(
+                    len(CHURN_GOLDEN[0]) * CHURN_GOLDEN[1] / golden_s),
+                run_mix_cycles_per_s=mix_rate,
+                teardown_device_ms=dev_ms, teardown_kernels=kernels,
+                teardown_wall_ms=wall_ms)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1600,6 +1831,12 @@ def main():
                       9000 / dt)
     log(f"[grid] phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 13. the churn runner on the same build --------------------------
+    t0 = time.perf_counter()
+    churn = churn_phase(torch, np, card, fused_tlb_round,
+                        1200 / seconds["mask"])
+    log(f"[churn] phase 13 took {time.perf_counter() - t0:.1f} s")
+
     # ---- 5-7. the model's serving path and its kernel -------------------
     flash, flash_fp32 = flash_phase(torch, np, flash_attention_bhsd, card)
     n_attn = get_model(SERVE_ARCH).n_layers
@@ -1647,7 +1884,8 @@ def main():
         "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
-        "library_ms": None, "shapes": timings, **grid}, flash, flash_fp32,
+        "library_ms": None, "shapes": timings, **grid, "churn": churn},
+        flash, flash_fp32,
         ssd,
         paged]}),
         flush=True)

@@ -10,10 +10,13 @@ on the card, the plain PyTorch round on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 from repro_torch.core.design import Design, as_design, get_design
 from repro_torch.device import resolve_device
+
+if TYPE_CHECKING:   # sim.faults imports this module; annotation only
+    from repro_torch.sim.faults import FaultPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +42,11 @@ class SimConfig:
     # a repro_torch.core.design.Design; a registered name is coerced
     design: Design = dataclasses.field(
         default_factory=lambda: get_design("gpu-mmu"))
+    # deterministic chaos schedule for `runner.run_trace` (sim.faults).
+    # Hashable and part of the config's identity, but stripped from the
+    # runner's plan key: fault operands are data, so every plan shares
+    # the no-fault segment plan.
+    fault_plan: Optional[FaultPlan] = None
     device: Optional[str] = None
 
     def __post_init__(self):

@@ -146,6 +146,8 @@ class _Consts(NamedTuple):
     line_salt: torch.Tensor      # (DATA_WIDTH, 1) int64 data-line salts
     zeros_core: torch.Tensor     # (C,) int32
     false_core: torch.Tensor     # (C,) bool
+    empty_walk: torch.Tensor     # (4,) int32 a free walk-table row
+    warp_app: torch.Tensor       # (W,) int64 app slot of each warp
 
 
 @functools.lru_cache(maxsize=32)
@@ -168,6 +170,10 @@ def _consts(cfg: SimConfig) -> _Consts:
         line_salt=torch.tensor(salts, dtype=torch.int64, device=dev)[:, None],
         zeros_core=torch.zeros(C, **i32),
         false_core=torch.zeros(C, dtype=torch.bool, device=dev),
+        empty_walk=torch.tensor([-1, -1, 0, 0], **i32),
+        warp_app=torch.tensor(cfg.app_of_core, dtype=torch.int64,
+                              device=dev).repeat_interleave(
+                                  cfg.warps_per_core),
     )
 
 
@@ -190,8 +196,7 @@ def init_trans(cfg: SimConfig) -> TransState:
         bypass_tlb=tlb_mod.init(tok.bypass_cache_entries,
                                 tok.bypass_cache_entries, dev),
         pwc=tlb_mod.init(cfg.pwc_entries, cfg.pwc_ways, dev),
-        walk=torch.tensor([-1, -1, 0, 0], dtype=I32, device=dev)
-        .repeat(tr.max_concurrent_walks, 1),
+        walk=_consts(cfg).empty_walk.repeat(tr.max_concurrent_walks, 1),
     )
 
 
@@ -787,3 +792,98 @@ def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
     return SimState(t=state.t + 1, stall_until=stall_until, instr=instr,
                     pos=pos, trans=trans_st, data=data_st, tokens=tokens,
                     stats=stats, asid_of_app=state.asid_of_app)
+
+
+# ---------------------------------------------------------------------------
+# app churn: membership-change teardown at a segment boundary
+# ---------------------------------------------------------------------------
+
+def _flush_slots(st: tlb_mod.TLBState, change, n_apps: int
+                 ) -> tlb_mod.TLBState:
+    """ASID shootdown for every changed SLOT of an asid-tagged cache:
+    planes (R, ..., sets, ways), change (R, n_apps) bool.
+
+    Entries store generation-bumped ASIDs (slot + k*n_apps, see
+    SimState.asid_of_app), so the kill predicate recovers the slot with
+    `% n_apps`. With an all-False change mask this is the identity, bit
+    for bit."""
+    R = change.shape[0]
+    slot = (st.asids % n_apps).long()
+    kill = (st.asids >= 0) & change.gather(1, slot.reshape(R, -1)) \
+        .reshape(slot.shape)
+    return st._replace(tags=torch.where(kill, -1, st.tags),
+                       asids=torch.where(kill, -1, st.asids))
+
+
+def apply_membership_change(cfg: SimConfig, dp: DesignParams,
+                            state: SimState, change) -> SimState:
+    """Teardown + cold start for the slots flagged in `change` ((n_apps,)
+    bool; (R, n_apps) for a state with a row axis): the departing app's
+    state is torn down and the slot is handed to its successor with a
+    FRESH address space (paper §5.1 shootdown semantics; the reference's
+    docstring lists each mechanism):
+
+      * L1 TLB bank / shared L2 TLB / bypass cache: every entry whose
+        ASID maps to a changed slot is invalidated;
+      * PWC: tag-only, so a FULL flush when any slot of the row changes;
+      * walk table: in-flight walks of changed slots are cancelled;
+      * tokens: changed slots restart from the InitialTokens state (the
+        shared `first_epoch` latch is left alone);
+      * DRAM pressure: the changed slots' Concurrent_i / WrpStalled_i
+        are zeroed until the next epoch census;
+      * warps of changed slots rewind to a cold stream, ready at `t`;
+      * stat planes of changed slots reset; the slot's ASID moves on by
+        n_apps (a new generation).
+
+    Every write is a `torch.where` on the change mask (the PWC's on
+    `change.any()` as a tensor), so nothing is read back to the host and
+    an all-False mask returns `state` bit for bit."""
+    change = torch.as_tensor(change, dtype=torch.bool, device=state.t.device)
+    if state.t.dim() == 0:                   # one run without a row axis
+        out = apply_membership_change(
+            cfg, dp, map_state(lambda x: x[None], state), change[None])
+        return map_state(lambda x: x[0], out)
+    na = cfg.n_apps
+    k = _consts(cfg)
+
+    trans = state.trans
+    any_c = change.any(-1)[:, None, None]
+    walk_asid = trans.walk[..., WASID]
+    walk_kill = (walk_asid >= 0) & change.gather(1, (walk_asid % na).long())
+    trans = trans._replace(
+        l1=_flush_slots(trans.l1, change, na),
+        l2tlb=_flush_slots(trans.l2tlb, change, na),
+        bypass_tlb=_flush_slots(trans.bypass_tlb, change, na),
+        pwc=trans.pwc._replace(tags=torch.where(any_c, -1, trans.pwc.tags)),
+        walk=torch.where(walk_kill[..., None], k.empty_walk, trans.walk))
+
+    fresh = tok_mod.init(na, k.warps_per_app, dp.initial_frac)
+    tok = state.tokens
+    tok = tok._replace(
+        tokens=torch.where(change, fresh.tokens, tok.tokens),
+        direction=torch.where(change, fresh.direction, tok.direction),
+        prev_miss_rate=torch.where(change, fresh.prev_miss_rate,
+                                   tok.prev_miss_rate),
+        epoch_hits=torch.where(change, 0, tok.epoch_hits),
+        epoch_misses=torch.where(change, 0, tok.epoch_misses))
+
+    dram = state.data.dram
+    dram = dram._replace(
+        conc_walks=torch.where(change, 0, dram.conc_walks),
+        warps_stalled=torch.where(change, 0, dram.warps_stalled))
+
+    warp_change = change[:, k.warp_app]                         # (R, W)
+    stall_until = torch.where(warp_change, state.t[:, None],
+                              state.stall_until)
+    instr = torch.where(warp_change, 0.0, state.instr)
+    pos = torch.where(warp_change, 0, state.pos)
+
+    stats = state.stats._replace(
+        ints=torch.where(change[..., None], 0, state.stats.ints),
+        floats=torch.where(change[..., None], 0.0, state.stats.floats))
+
+    return state._replace(
+        stall_until=stall_until, instr=instr, pos=pos, trans=trans,
+        data=state.data._replace(dram=dram), tokens=tok, stats=stats,
+        asid_of_app=torch.where(change, state.asid_of_app + na,
+                                state.asid_of_app))

@@ -1,14 +1,16 @@
-"""Simulation runner: N-app mixes, solo/pair wrappers, grids, typed
-experiments.
+"""Simulation runner: N-app mixes, solo/pair wrappers, grids, churn
+traces, typed experiments.
 
-Port of `repro.sim.runner`'s main path and grid layer:
+Port of `repro.sim.runner`'s main path, grid layer and churn runner:
 
 * Raw: `run_mix(design, benches)` co-runs len(benches) applications
   (None entries are idle partners) and returns the per-app stats dict of
   the reference, computed on the host in numpy by the same `_stats`.
   `run_pair` / `run_solo` wrap it; `run_batch` runs many same-size mixes
   of one design in one pass; `run_grid` runs a designs x mixes cross
-  product; `predict_mixes` is the serving oracle's entry point.
+  product; `predict_mixes` is the serving oracle's entry point;
+  `run_trace(design, schedule, seg_cycles)` runs a time-varying mix,
+  segment by segment, with teardown and faults at the boundaries.
 * Typed: `Experiment(design, mixes, cycles).run()` returns an
   `ExperimentResult` of `MixResult`/`AppStats` objects with the derived
   metrics; `sweep(designs, mixes)` drives many designs.
@@ -20,15 +22,18 @@ cycle issues the same launches whatever the row count (the reference's
 so a pass issues no host sync until its final state is fetched, in one
 transfer. The design's policy knobs are host scalars that the step
 branches on (`core/design.py`), so the rows of one pass share one
-design: `run_grid` runs one pass per (design, chunk of mixes), where the
-reference runs one per static-signature group.
+design: `run_grid` runs one pass per design, all of its mixes as rows,
+where the reference runs one per static-signature group.
 
 `TRACE_COUNT` counts PLANS, not traces: the port compiles nothing, and
 a plan is one (canonical `SimConfig`, row count) that the runner has set
 up, keyed by `canonical_design(static_signature(d))` as the reference
-keys its compiles. So the reference's laws hold: an 8-design sweep over
-one mix size sets up one plan per signature group, a repeated sweep
-none, and a `predict_mixes` loop with `pad_rows` one for its lifetime.
+keys its compiles, or one segment of a trace (canonical `SimConfig`,
+whose `sim_cycles` is the segment's length). So the reference's laws
+hold: an 8-design sweep over one mix size sets up one plan per signature
+group, a repeated sweep none, a `predict_mixes` loop with `pad_rows` one
+for its lifetime, and every schedule, K and fault plan of one shape
+shares one segment plan.
 
 The entry points run on the card unless `device` names another one:
 `device=None` means "cuda" and raises where no card is visible.
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
@@ -47,9 +53,11 @@ from repro_torch.core.design import (Design, DesignParams, as_design,
                                      canonical_design, design_params,
                                      static_signature)
 from repro_torch.device import DeviceLike
+from repro_torch.sim import faults as faults_mod
 from repro_torch.sim.config import SimConfig
 from repro_torch.sim.convert import row_of, state_to_numpy
-from repro_torch.sim.memsys import SimState, init_state, step
+from repro_torch.sim.memsys import (SimState, apply_membership_change,
+                                   init_state, step)
 from repro_torch.sim.workloads import app_matrix
 
 DesignLike = Union[str, Design]  # legacy DesignPoint also accepted
@@ -68,26 +76,32 @@ class NonFiniteStatsError(RuntimeError):
 
 
 @torch.inference_mode()
-def simulate(cfg: SimConfig, dp: DesignParams,
-             params_mat: torch.Tensor) -> SimState:
-    """Run `cfg.sim_cycles` cycles from the cold start; returns the state.
+def simulate(cfg: SimConfig, dp: DesignParams, params_mat: torch.Tensor,
+             state: Optional[SimState] = None, start: int = 0) -> SimState:
+    """Run `cfg.sim_cycles` cycles; returns the state.
 
     params_mat: (R, n_apps, N_FIELDS), one workload matrix per row, gives
     a state of R rows; an (n_apps, N_FIELDS) matrix gives the reference's
-    single state, without the row axis."""
-    rows = params_mat.shape[0] if params_mat.dim() == 3 else None
-    st = init_state(cfg, dp, rows)
-    for cycle in range(cfg.sim_cycles):
-        st = step(cfg, dp, params_mat, st, cycle)
-    return st
+    single state, without the row axis. `state` (default: the cold start)
+    is the state to run on and `start` the cycle its clock reads: the host
+    copy of `state.t`, which `step` and the epoch logic take, so a later
+    segment of a trace runs cycles start .. start + sim_cycles - 1."""
+    if state is None:
+        state = init_state(
+            cfg, dp, params_mat.shape[0] if params_mat.dim() == 3 else None)
+    for cycle in range(start, start + cfg.sim_cycles):
+        state = step(cfg, dp, params_mat, state, cycle)
+    return state
 
 
 def _canonical(cfg: SimConfig) -> SimConfig:
     """The config with its design replaced by its signature group's
-    canonical representative: the plan key. The stages read only
-    static-signature fields of the design; its knobs travel in `dp`."""
+    canonical representative and its fault plan stripped: the plan key.
+    The stages read only static-signature fields of the design; its knobs
+    travel in `dp`, and fault operands are data."""
     return dataclasses.replace(
-        cfg, design=canonical_design(static_signature(cfg.design)))
+        cfg, design=canonical_design(static_signature(cfg.design)),
+        fault_plan=None)
 
 
 @functools.lru_cache(maxsize=64)
@@ -101,6 +115,29 @@ def _plan(ccfg: SimConfig, rows: int):
     return functools.partial(simulate, ccfg)
 
 
+@functools.lru_cache(maxsize=64)
+def _seg_plan(ccfg: SimConfig):
+    """One segment of a trace under the canonical config `ccfg` (its
+    `sim_cycles` is the segment's length): membership-change teardown,
+    the boundary's faults, then the segment's cycles, over a state with a
+    row axis. A callable (dp, params (R, n_apps, N_FIELDS), state, start,
+    change (R, n_apps), fault operands of one segment with a row axis) ->
+    state. Schedules, change masks, fault operands and K are data, so
+    every trace of one shape runs through one plan. With an all-False
+    change and no fault the boundary returns the state bit for bit, which
+    makes constant-membership segments equal the monolithic run."""
+    global TRACE_COUNT
+    TRACE_COUNT += 1
+
+    @torch.inference_mode()
+    def seg(dp, params_mat, state, start, change, fops):
+        state = apply_membership_change(ccfg, dp, state, change | fops.kill)
+        state = faults_mod.apply_state_faults(ccfg, state, fops)
+        return simulate(ccfg, dp, params_mat, state, start)
+
+    return seg
+
+
 def _run_rows(cfg: SimConfig, dp: DesignParams,
               mixes: Sequence[Tuple[Optional[str], ...]]) -> SimState:
     """One pass of `mixes` (one row each) under `cfg`'s design; returns
@@ -110,9 +147,22 @@ def _run_rows(cfg: SimConfig, dp: DesignParams,
     return state_to_numpy(_plan(_canonical(cfg), len(mixes))(dp, pm))
 
 
-def _stats(cfg: SimConfig, st: SimState) -> Dict[str, np.ndarray]:
+def _audit_enabled(audit: Optional[bool]) -> bool:
+    """None defers to env REPRO_AUDIT; True/False force it on/off."""
+    if audit is not None:
+        return audit
+    return os.environ.get("REPRO_AUDIT", "") in ("1", "true", "yes")
+
+
+def _stats(cfg: SimConfig, st: SimState,
+           audit: Optional[bool] = None) -> Dict[str, np.ndarray]:
     """Per-app stats from a one-row state with numpy leaves
-    (`state_to_numpy(st, row=r)` or `row_of`)."""
+    (`state_to_numpy(st, row=r)` or `row_of`); with the audit on
+    (`audit=True`, or None and env REPRO_AUDIT set) the state is first
+    held to `sim.audit.check_state`."""
+    if _audit_enabled(audit):
+        from repro_torch.sim.audit import check_state
+        check_state(cfg, st)
     na = cfg.n_apps
     warp_app = np.repeat(np.asarray(cfg.app_of_core), cfg.warps_per_core)
     t = float(st.t)
@@ -195,9 +245,109 @@ def run_batch(design: DesignLike,
     return [_stats(cfg, row_of(final, i)) for i in range(len(bench_mixes))]
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TraceResult:
+    """A segmented churn run: final stats + per-boundary snapshots.
+
+    `stats` is the run_mix-shaped dict of the FINAL state; for a
+    constant-membership schedule it is float-hex identical to
+    `run_mix(design, schedule[0], cycles=K * seg_cycles)`. `segments[k]`
+    is the cumulative stats snapshot after segment k. Counters of a slot
+    reset when its membership changes (the arriving app starts cold), so
+    a churned slot's numbers read "since its last arrival"; `ipc` always
+    divides by the TOTAL elapsed cycles. `final_state` is the port's
+    state on its device, without the row axis (`return_state=True`).
+    """
+    design: Design
+    schedule: Tuple[Tuple[Optional[str], ...], ...]
+    seg_cycles: int
+    stats: Mapping[str, np.ndarray]
+    segments: Tuple[Mapping[str, np.ndarray], ...]
+    final_state: Optional[SimState] = None
+
+    def __getitem__(self, key: str):
+        return self.stats[key]
+
+
+def run_trace(design: DesignLike,
+              schedule: Sequence[Tuple[Optional[str], ...]],
+              seg_cycles: int = 2_000,
+              fault_plan: Optional[faults_mod.FaultPlan] = None,
+              audit: Optional[bool] = None,
+              collect_segments: bool = True,
+              return_state: bool = False,
+              device: DeviceLike = None) -> TraceResult:
+    """Run a time-varying mix: one membership tuple per segment.
+
+    `schedule[k]` is the bench tuple live during segment k (None entries
+    are idle slots); all tuples must share one length. Between segments,
+    every slot whose entry CHANGED gets full teardown + cold-start
+    semantics (`memsys.apply_membership_change`: ASID shootdown across the
+    TLB hierarchy, walk cancellation, token/DRAM-pressure release, a
+    fresh ASID generation, cold warps and counters), and the boundary's
+    faults from `fault_plan` are applied (`sim.faults`; its kills join
+    the change mask). Segment k runs cycles k*seg_cycles ..
+    (k+1)*seg_cycles - 1 of the host's clock, so LRU stamps, stall
+    deadlines and epochs run on as in one monolithic run. The schedule's
+    workload rows, change masks and fault operands go to the device once,
+    as data: the whole trace runs through one segment plan per (signature
+    group, n_apps, seg_cycles), and nothing is read back between segments
+    but the snapshots.
+
+    `audit`: None defers to env `REPRO_AUDIT` (the state auditor runs on
+    every collected snapshot, `sim.audit`); True/False force it.
+    `collect_segments=False` skips intermediate snapshots (one transfer
+    to the host instead of K). `return_state` attaches the final state.
+    """
+    schedule = [tuple(s) for s in schedule]
+    if not schedule:
+        raise ValueError("schedule needs at least one segment")
+    sizes = {len(s) for s in schedule}
+    if len(sizes) != 1:
+        raise ValueError(
+            f"all schedule segments must have the same slot count "
+            f"(it is an array shape), got {sizes}")
+    if seg_cycles < 1:
+        raise ValueError(f"seg_cycles must be >= 1, got {seg_cycles}")
+    n = sizes.pop()
+    K = len(schedule)
+    cfg = SimConfig(n_apps=n, sim_cycles=seg_cycles,
+                    design=as_design(design), fault_plan=fault_plan,
+                    device=device)
+    ccfg = _canonical(cfg)
+    dp = design_params(cfg.design)
+    ops = (faults_mod.plan_operands(fault_plan, cfg, K) if fault_plan
+           else faults_mod.empty_operands(cfg, K))
+    seg_run = _seg_plan(ccfg)
+
+    # the trace's data, one row per segment's state: (K, 1, ...); segment
+    # 0's membership is the cold init itself (no teardown)
+    dev = cfg.device
+    pms = torch.tensor(np.stack([_mix_matrix(b) for b in schedule])[:, None],
+                       device=dev)
+    changes = torch.tensor(np.array(
+        [[a != b for a, b in zip(p, s)]
+         for p, s in zip(schedule[:1] + schedule[:-1], schedule)])[:, None],
+        device=dev)
+    dev_ops = faults_mod.FaultOps(*(torch.tensor(x[:, None], device=dev)
+                                    for x in ops))
+    state = init_state(ccfg, dp, rows=1)
+    snaps: List[Dict] = []
+    for k in range(K):
+        state = seg_run(dp, pms[k], state, k * seg_cycles, changes[k],
+                        faults_mod.FaultOps(*(x[k] for x in dev_ops)))
+        if collect_segments or k == K - 1:
+            snaps.append(_stats(cfg, state_to_numpy(state, row=0),
+                                audit=audit))
+    return TraceResult(
+        design=cfg.design, schedule=tuple(schedule), seg_cycles=seg_cycles,
+        stats=snaps[-1], segments=tuple(snaps) if collect_segments else (),
+        final_state=row_of(state, 0) if return_state else None)
+
+
 @dataclasses.dataclass(frozen=True)
 class FailureRecord:
-    """A sweep cell (or whole chunk) that failed.
+    """A sweep cell (or a whole pass) that failed.
 
     Fail-soft sweeps return these IN PLACE of stats/results instead of
     aborting the remaining passes: one poisoned design point costs its
@@ -219,13 +369,6 @@ class FailureRecord:
             f"cycles={self.cycles}: {self.error_type}: {self.message}")
 
 
-def _chunk_width(n: int, cap: int) -> int:
-    """Equal-width chunks only (a ragged tail would be a second plan): n
-    itself within the cap, else its largest divisor within the cap."""
-    cap = max(cap, 1)
-    return n if n <= cap else max(w for w in range(1, cap + 1) if n % w == 0)
-
-
 def _check_devices(devices: Optional[int]) -> None:
     if devices not in (None, 1):
         raise NotImplementedError(
@@ -245,18 +388,19 @@ def run_grid(designs: Sequence[DesignLike],
     aligned with the inputs, bit for bit equal to
     `run_mix(designs[d], bench_mixes[m], cycles)`.
 
-    Each design runs its mixes as the rows of one pass, with one plan per
-    (signature group, row count). A design with more than `max_rows`
-    mixes runs in chunks of EQUAL width, the largest divisor of the mix
-    count within the cap (the reference's rule), so every chunk reuses
-    one plan. Rows are independent, so chunking cannot change them.
+    Each design runs all of its mixes as the rows of one pass, with one
+    plan per (signature group, row count): as in the reference, a
+    design's mixes are never split, whatever M is. `max_rows` is kept for
+    the reference's signature: there it caps how many whole designs share
+    a call, and a pass here always serves one design (its knobs are host
+    scalars), so it changes nothing yet.
 
     `devices`: None or 1; rows over several devices are not ported yet
     and raise NotImplementedError.
 
-    `fail_soft=True` catches a failing chunk (set-up error, execution
-    error, or corrupt stats) into a `FailureRecord` placed in every cell
-    the chunk covered, and CONTINUES with the remaining chunks. Default
+    `fail_soft=True` catches a failing pass (set-up error, execution
+    error, or corrupt stats) into a `FailureRecord` placed in all of its
+    design's cells, and CONTINUES with the remaining designs. Default
     False keeps raise-on-first-error semantics.
     """
     _check_devices(devices)
@@ -265,25 +409,19 @@ def run_grid(designs: Sequence[DesignLike],
     if not ds:
         return []
     M = len(bench_mixes)
-    width = _chunk_width(M, max_rows)
-    out: List[List[Union[Dict, FailureRecord]]] = [[None] * M for _ in ds]
-    for di, d in enumerate(ds):
-        for lo in range(0, M, width):
-            try:
-                cfg = _config(d, n, cycles, device)
-                final = _run_rows(cfg, design_params(d),
-                                  bench_mixes[lo:lo + width])
-                for j in range(width):
-                    out[di][lo + j] = _stats(cfg, row_of(final, j))
-            except Exception as e:  # noqa: BLE001 — fail-soft boundary
-                if not fail_soft:
-                    raise
-                rec = FailureRecord(
-                    designs=(d.name,), n_apps=n, cycles=cycles,
-                    error_type=type(e).__name__, message=str(e),
-                    stage="grid-chunk")
-                for j in range(lo, lo + width):
-                    out[di][j] = rec
+    out: List[List[Union[Dict, FailureRecord]]] = []
+    for d in ds:
+        try:
+            cfg = _config(d, n, cycles, device)
+            final = _run_rows(cfg, design_params(d), bench_mixes)
+            out.append([_stats(cfg, row_of(final, m)) for m in range(M)])
+        except Exception as e:  # noqa: BLE001 — fail-soft boundary
+            if not fail_soft:
+                raise
+            out.append([FailureRecord(
+                designs=(d.name,), n_apps=n, cycles=cycles,
+                error_type=type(e).__name__, message=str(e),
+                stage="grid-chunk")] * M)
     return out
 
 
@@ -330,8 +468,8 @@ def predict_mixes(design: DesignLike,
 
     `solo_cache` (mutated in place when given) carries solo IPCs across
     calls so previously-seen benches don't re-simulate their baselines.
-    With `fail_soft=True` a failing chunk yields `FailureRecord`s in
-    place of predictions (and poisons only the mixes that needed it).
+    With `fail_soft=True` a failing pass yields `FailureRecord`s in
+    place of predictions.
     """
     mixes = [tuple(b for b in m if b is not None) for m in mixes]
     if not mixes:
@@ -661,7 +799,7 @@ def sweep(designs: Sequence[DesignLike],
 
     With `grid=True` (default) every (design, n_apps) slice — every mix
     of that size, solo baselines included — runs through `run_grid`, one
-    pass per design and chunk. `grid=False` keeps the per-design
+    pass per design. `grid=False` keeps the per-design
     `Experiment` loop; results are bit for bit identical either way.
 
     `devices`: None or 1 (see `run_grid`); more needs the grid path and

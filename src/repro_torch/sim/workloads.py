@@ -4,16 +4,17 @@ The paper's 27 benchmarks (Table 2) fall into four locality categories by
 (L1 TLB, L2 TLB) miss rates. One deterministic generator per benchmark:
 parameters are drawn per category with a stable per-name md5 jitter.
 Streams mix sequential striding, a hot page set, a per-group warm set and
-uniform-random far pages. The parameter tables and the mix generators
-(`mix_workloads`, `pair_workloads`, `hmr_class`, copies of the
-reference's JAX-free ones) are host numpy; `gen_vpn` runs on tensors.
+uniform-random far pages. The parameter tables, the mix generators
+(`mix_workloads`, `pair_workloads`, `hmr_class`) and the churn schedule
+(`churn_schedule`), copies of the reference's JAX-free ones, are host
+numpy; `gen_vpn` runs on tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,3 +198,39 @@ def pair_workloads(seed: int = 7, n_pairs: int = 35) -> List[Tuple[str, str]]:
 def hmr_class(mix: Tuple[str, ...]) -> int:
     """0..len(mix) HMR: count of high-L1,high-L2 apps in the bundle."""
     return sum(1 for b in mix if CATEGORY[b] == ("high", "high"))
+
+
+def churn_schedule(seed: int = 0, n_segments: int = 8, n_slots: int = 2,
+                   arrival_rate: float = 0.4, departure_rate: float = 0.25,
+                   benches: Optional[List[str]] = None
+                   ) -> List[Tuple[Optional[str], ...]]:
+    """Seeded time-varying membership for `runner.run_trace`.
+
+    Returns one bench tuple per segment (None = empty slot). Per
+    boundary, each occupied slot departs with `departure_rate` and each
+    empty slot admits a random app with `arrival_rate` — a discrete
+    birth-death process over the slot array, the thesis's (arXiv
+    1803.06958) time-varying sharing shape. A departure immediately
+    followed by an arrival in the same slot is a slot hand-off: the
+    runner tears the predecessor down and starts the successor on a
+    fresh ASID generation. Deterministic in `seed`.
+    """
+    if n_segments < 1 or n_slots < 1:
+        raise ValueError("need n_segments >= 1 and n_slots >= 1")
+    rng = np.random.RandomState(seed)
+    pool = list(benches) if benches is not None else [
+        b for b in BENCHES if CATEGORY[b] != ("low", "low")]
+    cur: List[Optional[str]] = [None] * n_slots
+    # start half-occupied (at least one app, so segment 0 is never fully
+    # idle) — the ramp-up to steady-state occupancy is part of the churn
+    for s in rng.choice(n_slots, size=max(n_slots // 2, 1), replace=False):
+        cur[s] = str(rng.choice(pool))
+    out = [tuple(cur)]
+    for _ in range(n_segments - 1):
+        for s in range(n_slots):
+            if cur[s] is not None and rng.rand() < departure_rate:
+                cur[s] = None
+            if cur[s] is None and rng.rand() < arrival_rate:
+                cur[s] = str(rng.choice(pool))
+        out.append(tuple(cur))
+    return out

@@ -13,7 +13,11 @@ on the same raw stats, and to the reference's laws:
 * `predict_mixes` == the reference's on one canned grid (both runners'
   `run_grid` replaced by it): slot and row padding, `solo_cache`,
   `FailureRecord` propagation;
-* the fail-soft laws of `tests/test_failsoft.py` on the poisoned design.
+* the fail-soft laws of `tests/test_failsoft.py` on the poisoned design;
+* `run_grid` runs each design's mixes as one pass whatever their count
+  (67 mixes, past the 64-row cap: one pass of 67 rows per design, counted
+  at `runner._run_rows`), and a failing pass's `FailureRecord` fills all
+  of its design's cells, as in the reference.
 """
 import dataclasses
 
@@ -59,20 +63,53 @@ def test_grid_matches_loop_float_hex(mixes):
             assert _hexed(grid[i][m]) == loop, f"{name} {mix} drifted"
 
 
-def test_run_grid_chunks_equal_width():
-    """5 mixes with max_rows=2 run in 5 passes of one row (the largest
-    divisor within the cap) and give the unchunked grid's cells."""
+def _count_passes(monkeypatch):
+    """Record the row count of every pass `run_grid` makes."""
+    passes = []
+    run_rows = runner._run_rows
+
+    def counted(cfg, dp, mixes):
+        passes.append((cfg.design.name, len(mixes)))
+        return run_rows(cfg, dp, mixes)
+
+    monkeypatch.setattr(runner, "_run_rows", counted)
+    return passes
+
+
+def test_run_grid_chunks_equal_width(monkeypatch):
+    """A design's mixes are never split, as in the reference: 5 mixes with
+    max_rows=2 run as one pass of 5 rows, reuse the 5-row plan, and give
+    the grid's cells without the cap."""
     mixes = [("3DS", "BLK"), ("MUM", "RED"), ("BLK", None), ("3DS", None),
              ("RED", "MUM")]
     whole = run_grid(["mask"], mixes, cycles=40, device="cpu")[0]
     before = runner.TRACE_COUNT
-    chunked = run_grid(["mask"], mixes, cycles=40, max_rows=2,
-                       device="cpu")[0]
-    for a, b in zip(whole, chunked):
+    passes = _count_passes(monkeypatch)
+    capped = run_grid(["mask"], mixes, cycles=40, max_rows=2,
+                      device="cpu")[0]
+    for a, b in zip(whole, capped):
         assert _hexed(a) == _hexed(b)
-    assert runner._chunk_width(5, 2) == 1 and runner._chunk_width(6, 4) == 3
-    assert runner._chunk_width(6, 64) == 6
-    assert runner.TRACE_COUNT - before <= 1     # one 1-row plan at most
+    assert passes == [("mask", 5)]
+    assert runner.TRACE_COUNT == before
+
+
+def test_run_grid_one_pass_per_design(monkeypatch):
+    """67 mixes (prime, past the 64-row cap): one pass of 67 rows per
+    design, where chunking by divisors would make 67 passes of one row;
+    a poisoned design's `FailureRecord` fills all 67 of its cells."""
+    from repro_torch.sim.workloads import pair_workloads
+    mixes = pair_workloads(n_pairs=67)
+    passes = _count_passes(monkeypatch)
+    out = run_grid(["mask", "pwc", _poison()], mixes, cycles=3,
+                   fail_soft=True, device="cpu")
+    assert passes == [("mask", 67), ("pwc", 67), ("poison", 67)]
+    assert all(len(row) == 67 for row in out)
+    for row in out[:2]:
+        assert all(np.isfinite(c["ipc"]).all() and c["cycles"] == 3.0
+                   for c in row)
+    rec = out[2][0]
+    assert isinstance(rec, FailureRecord) and rec.designs == ("poison",)
+    assert all(c is rec for c in out[2])
 
 
 def test_sweep_grid_matches_experiment_loop():
