@@ -140,6 +140,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                logged, two runs equal bit for bit; one layer's call
                timed against its bound.
 
+ 14. serve-stack -- (run after phase 11, on its builds) the serving stack,
+               `repro_torch.serving` and `launch/serve.py`: (a) the
+               reference's overload record: `benchmarks/serving_bench.py`'s
+               `overload_run(seed=0)` settings copied here (flood_vs_trickle,
+               240 steps, the 64-page pool, `overload_plan(0)`, stub
+               forwards, max_batch 8 / max_running 12, the oracle at 300
+               cycles, 2 slots, pad_rows 8, epoch 8, degrade 0.4 /
+               re-engage 0.28 over 2 epochs, `Recalibrator(alpha=0.5)`,
+               solo hints from the `none` policy) must give
+               `BENCH_serving.json`'s `overload` section exactly, in two
+               builds, with `fused_tlb` launches == the oracle's grid passes
+               x 300; (b) qwen3-4b at full width (bf16, seeded random
+               weights, `pallas_flash`) served by `ServingEngine` under the
+               oracle policy (300 cycles) over flood_vs_trickle(seed=0,
+               steps=32), the pool at the model's KV widths (16 sequences x
+               8 pages of 128): 0 lost or duplicated, flash launches == 36 x
+               the prefills the engine ran (all wgmma), `fused_tlb` == grid
+               passes x 300, every logit finite, the first finished
+               request's tokens == a direct greedy prefill + decode bit for
+               bit; engine steps/s, decoded tokens/s, the oracle's share of
+               wall time, peak memory; (c) `python -m
+               repro_torch.launch.serve --arch qwen3-4b --trace
+               flood_vs_trickle --steps 24 --policy oracle --faults
+               --fault-rate 0.1` in a process of its own exits 0 with
+               `lost 0 duplicated 0`.
+
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
 non-zero without one, and outside a checkout of the repository.
@@ -1713,6 +1739,355 @@ def churn_phase(torch, np, card, fused_tlb_round, mix_rate):
                 teardown_wall_ms=wall_ms)
 
 
+# ---- 14. the serving stack ------------------------------------------------
+# benchmarks/serving_bench.py's overload run (`overload_run(seed=0)`), its
+# settings copied as GOLDEN is: this script imports nothing of benchmarks/.
+# `overload_run` caps the benchmark's --cycles (600) at 300 for the oracle
+# (serving_bench.py:333); the reference reproduces the record at 300.
+OVERLOAD_POOL = dict(n_pages=64, page_size=8, n_kv=1, head_dim=4,
+                     n_layers=1, max_seqs=16, pages_per_seq=8)
+OVERLOAD_TRACE = ("flood_vs_trickle", 0, 240)        # preset, seed, steps
+OVERLOAD_ENGINE = dict(max_batch=8, max_running=12)
+OVERLOAD_ORACLE = dict(cycles=300, slots=2, pad_rows=8)
+OVERLOAD_POLICY = dict(epoch_steps=8, degrade_error=0.4, reengage_error=0.28,
+                       error_window=2)
+OVERLOAD_ALPHA = 0.5                                 # Recalibrator(alpha=)
+OVERLOAD_DRAIN, SOLO_DRAIN = 2000, 1200
+# overload_plan(0): (kind, step, duration, tenant, pages, profile)
+OVERLOAD_PLAN = (("oracle_stall", 16, 8, 0, 0, "heavy"),
+                 ("profile_poison", 36, 36, 0, 0, "interactive"),
+                 ("pool_spike", 40, 32, 0, 64, "heavy"))
+# BENCH_serving.json "overload", copied
+OVERLOAD_RECORD = {
+    "conservation": {"duplicated": 0, "finished": 139, "lost": 0,
+                     "ok": True, "pending": 0, "submitted": 139},
+    "deterministic": True,
+    "overload": {
+        "faults_injected": {"oracle_stall": 1, "pool_spike": 1,
+                            "profile_poison": 1},
+        "preempted_tenants": [0], "preemptions": 6,
+        "recalibration": {
+            "corrections": {"0": 1.6771178861413005,
+                            "1": 1.8709685395666285},
+            "last_delta": 0.09410748689521643, "rejected": 0,
+            "updates": 32},
+        "safe_level_final": 0,
+        "safe_mode_log": [[9, 1, 0.4782721605195485],
+                          [11, 0, 0.09492645630990623],
+                          [15, 1, 0.4260141032294864],
+                          [18, 0, 0.10599998178875163]],
+        "wasted_tokens": 18},
+    "plan": [["oracle_stall", 16, 8, 0], ["profile_poison", 36, 36, 0],
+             ["pool_spike", 40, 32, 0]],
+    "rungs": {"freeze": 2, "normal": 26, "preempt": 4, "quota": 1,
+              "safe_static": 5, "stalled": 2},
+    "safe_mode_engaged": True, "safe_mode_recovered": True,
+    "steps": 240, "trace": "flood_vs_trickle", "unfairness": 1.57,
+}
+# (b): qwen3-4b at full width through the engine and the oracle
+ENGINE_TRACE = ("flood_vs_trickle", 0, 32)           # preset, seed, steps
+ENGINE_POOL = dict(max_seqs=16, pages_per_seq=8)     # page, KV, dh: the model's
+ENGINE_CYCLES = 300                                  # make_policy("oracle", cycles=)
+ENGINE_EPOCH = 8
+# (c): the launcher as a user runs it
+LAUNCHER = ["--arch", "qwen3-4b", "--trace", "flood_vs_trickle", "--steps",
+            "24", "--policy", "oracle", "--faults", "--fault-rate", "0.1"]
+
+
+def timed_oracle(**kw):
+    """A `ContentionOracle` that sums the seconds of its grid calls
+    (`predict_benches`; each ends in a host read of the pass's state)."""
+    from repro_torch.serving.oracle import ContentionOracle
+
+    class TimedOracle(ContentionOracle):
+        seconds = 0.0
+
+        def predict_benches(self, bench_mixes):
+            t0 = time.perf_counter()
+            try:
+                return super().predict_benches(bench_mixes)
+            finally:
+                self.seconds += time.perf_counter() - t0
+    return TimedOracle(**kw)
+
+
+def fingerprint(eng):
+    """benchmarks/serving_bench.py `_fingerprint`: the run's visible
+    history (finished requests, decisions, preemptions, faults, modes)."""
+    return (
+        tuple((r.rid, r.tenant, r.submit_step, r.first_token_step,
+               r.finish_step, r.retries, r.wasted_tokens, len(r.out))
+              for r in sorted(eng.finished, key=lambda r: r.rid)),
+        tuple((d.step, d.rung, d.allowed, tuple(sorted(d.caps.items())),
+               tuple(sorted(d.decode_quota.items())),
+               tuple(sorted(d.preempt.items())))
+              for d in eng.decisions),
+        tuple(eng.preempt_log),
+        tuple(eng.fault_log),
+        tuple(getattr(eng.placement, "mode_log", [])),
+    )
+
+
+def overload_phase(torch, np, card, fused_tlb_round, dev="cuda"):
+    """Phase 14 (a): the reference's overload record, reproduced by the
+    port's engine, placement and oracle on `dev`, stub forwards, the
+    oracle's grid on the card. Returns its part of the serving entry."""
+    from repro_torch.memmgr.kv_cache import PoolConfig
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import stream as strm
+    from repro_torch.serving.engine import (EngineConfig, ServingEngine,
+                                            stub_forwards, stub_model_config)
+    from repro_torch.serving.oracle import Recalibrator
+    from repro_torch.serving.placement import make_policy
+    from repro_torch.sim.faults import ServingFault, ServingFaultPlan
+
+    pool = PoolConfig(**OVERLOAD_POOL)
+    name, seed, steps = OVERLOAD_TRACE
+    trace = strm.make_trace(name, seed=seed, steps=steps)
+    plan = ServingFaultPlan(seed=seed, faults=tuple(
+        ServingFault(k, step=s, duration=d, tenant=t, pages=p, profile=pr)
+        for k, s, d, t, p, pr in OVERLOAD_PLAN))
+
+    def drive(tr, policy, solo_hint=None, fault_plan=None, drain=SOLO_DRAIN):
+        eng = ServingEngine(
+            stub_model_config(), None, None, pool,
+            EngineConfig(**OVERLOAD_ENGINE, fault_plan=fault_plan),
+            placement=policy, profiles=tr.profiles(),
+            forwards=stub_forwards(), solo_hint=solo_hint, device=dev)
+        strm.drive(eng, tr, drain_steps=drain)
+        return eng
+
+    t0 = time.perf_counter()
+    solo = {}
+    for spec in trace.specs:          # solo hints: each tenant alone, "none"
+        solo.update(smet.tenant_mean_latency(
+            drive(trace.only(spec.tenant), make_policy("none")).finished))
+    solo_s = time.perf_counter() - t0
+
+    runs = []
+    for _ in range(2):                # the record's determinism: two builds
+        oracle = timed_oracle(device=dev, **OVERLOAD_ORACLE)
+        policy = make_policy("oracle", profiles=trace.profiles(),
+                             oracle=oracle,
+                             recalibrator=Recalibrator(alpha=OVERLOAD_ALPHA),
+                             **OVERLOAD_POLICY)
+        fused_tlb_round.launches = 0
+        t0 = time.perf_counter()
+        eng = drive(trace, policy, solo, plan, OVERLOAD_DRAIN)
+        wall = time.perf_counter() - t0
+        launches = fused_tlb_round.launches
+        rounds = oracle.grid_calls * oracle.cycles
+        if launches != rounds or launches == 0:
+            raise AssertionError(f"overload: fused_tlb launched {launches} "
+                                 f"times for {oracle.grid_calls} grid "
+                                 f"passes x {oracle.cycles} rounds")
+        runs.append((eng, oracle, wall, launches))
+    eng, oracle, wall, launches = runs[0]
+    over = smet.overload_summary(eng)
+    modes = [lvl for _, lvl, _ in over["safe_mode_log"]]
+    engaged = any(lvl > 0 for lvl in modes)
+    record = {
+        "trace": trace.name, "steps": trace.steps,
+        "plan": [(f.kind, f.step, f.duration, f.tenant)
+                 for f in plan.faults],
+        "unfairness": round(smet.fairness_report(
+            eng.finished, solo, eng.decisions)["unfairness"], 4),
+        "conservation": smet.conservation_report(eng),
+        "overload": over,
+        "rungs": smet.rung_counts(eng.decisions),
+        "deterministic": fingerprint(eng) == fingerprint(runs[1][0]),
+        "safe_mode_engaged": engaged,
+        "safe_mode_recovered": (engaged and over["safe_level_final"]
+                                < max(modes)) if modes else False,
+    }
+    got = json.loads(json.dumps(record, sort_keys=True))
+    if got != OVERLOAD_RECORD:
+        diff = sorted(k for k in OVERLOAD_RECORD if got.get(k)
+                      != OVERLOAD_RECORD[k])
+        raise AssertionError(f"overload record differs in {diff}: "
+                             f"{json.dumps({k: got.get(k) for k in diff})}")
+    log(f"[serve-stack] (a) overload run (flood_vs_trickle, {steps} steps, "
+        f"overload_plan(0), stub forwards, oracle {OVERLOAD_ORACLE}) == "
+        f"BENCH_serving.json's overload record: "
+        f"{record['conservation']['finished']}/"
+        f"{record['conservation']['submitted']} finished, 0 lost, 0 "
+        f"duplicated; rungs {record['rungs']}; preemptions "
+        f"{over['preemptions']}, wasted tokens {over['wasted_tokens']}; "
+        f"safe-mode log {over['safe_mode_log']}; corrections "
+        f"{over['recalibration']['corrections']}; faults "
+        f"{over['faults_injected']}; unfairness {record['unfairness']}; "
+        f"two builds equal")
+    log(f"[serve-stack] (a) oracle: {oracle.grid_calls} grid passes x "
+        f"{oracle.cycles} cycles, fused_tlb launches {launches} == rounds "
+        f"(both builds: {[r[3] for r in runs]}); {oracle.seconds:.2f} s of "
+        f"the drive's {wall:.2f} s wall ({oracle.seconds / wall:.1%}); "
+        f"{eng.step_count} engine steps, {eng.step_count / wall:.1f} "
+        f"steps/s; solo hints {solo_s:.2f} s [{card}]")
+    return dict(overload_launches=launches,
+                overload_grid_calls=oracle.grid_calls,
+                overload_cycles=oracle.cycles,
+                overload_wall_s=wall, overload_oracle_s=oracle.seconds,
+                overload_steps=eng.step_count)
+
+
+def engine_phase(torch, np, card, flash_attention_bhsd, fused_tlb_round,
+                 dev="cuda"):
+    """Phase 14 (b): full-width qwen3-4b (bf16, `pallas_flash`) served by
+    the engine under the oracle policy, its grid on the card. Returns its
+    part of the serving entry."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.memmgr.kv_cache import PoolConfig
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import stream as strm
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.placement import make_policy
+
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg, run, params = model_setup(torch, None)
+    pool = PoolConfig(n_pages=ENGINE_POOL["max_seqs"] * ENGINE_POOL[
+        "pages_per_seq"], page_size=cfg.kv_page_size, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, n_layers=cfg.n_layers, **ENGINE_POOL)
+    name, seed, steps = ENGINE_TRACE
+    trace = strm.make_trace(name, seed=seed, steps=steps)
+    finite_ok = torch.ones((), dtype=torch.bool, device=dev)
+    prefills = []
+
+    def prefill(cfg_, run_, params_, batch, max_len=None):
+        logits, caches = model.forward_prefill(cfg_, run_, params_, batch,
+                                               max_len=max_len)
+        prefills.append(tuple(batch["tokens"].shape))
+        finite_ok.logical_and_(torch.isfinite(logits.float()).all())
+        return logits, caches
+
+    def decode(cfg_, run_, params_, batch, caches):
+        logits, caches = model.forward_decode(cfg_, run_, params_, batch,
+                                              caches)
+        finite_ok.logical_and_(torch.isfinite(logits.float()).all())
+        return logits, caches
+
+    oracle = timed_oracle(cycles=ENGINE_CYCLES, device=dev)
+    policy = make_policy("oracle", profiles=trace.profiles(), oracle=oracle,
+                         epoch_steps=ENGINE_EPOCH)
+    ecfg = EngineConfig(**OVERLOAD_ENGINE)
+    eng = ServingEngine(cfg, run, params, pool, ecfg, placement=policy,
+                        profiles=trace.profiles(), forwards=(prefill, decode),
+                        device=dev)
+    torch.cuda.synchronize()
+    zero_counts(flash_attention_bhsd)
+    fused_tlb_round.launches = 0
+    t0 = time.perf_counter()
+    strm.drive(eng, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash = flash_attention_bhsd.launches
+    tlb = fused_tlb_round.launches
+    cons = smet.conservation_report(eng)
+    if not cons["ok"] or cons["pending"]:
+        raise AssertionError(f"engine conservation {cons}")
+    routed(flash_attention_bhsd, "wgmma", cfg.n_layers * len(prefills),
+           f"{len(prefills)} engine prefills of {cfg.n_layers} layers")
+    if tlb != oracle.grid_calls * oracle.cycles or tlb == 0:
+        raise AssertionError(f"engine: fused_tlb launched {tlb} times for "
+                             f"{oracle.grid_calls} grid passes x "
+                             f"{oracle.cycles} rounds")
+    if not bool(finite_ok):
+        raise AssertionError("engine: a non-finite logit")
+    decoded = sum(r.decoded for r in eng.finished)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the first finished request against a direct greedy run of its prompt
+    req = eng.finished[0]
+    tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                             device=dev)[None]
+    logits, caches = model.forward_prefill(
+        cfg, run, params, {"tokens": tokens},
+        max_len=pool.pages_per_seq * pool.page_size)
+    want = [int(torch.argmax(logits[0, -1]))]
+    for _ in range(min(req.max_new, ecfg.decode_len_cap)):
+        tok = torch.as_tensor(np.asarray([[want[-1]]], np.int32),
+                              device=dev)
+        logits, caches = model.forward_decode(cfg, run, params,
+                                              {"tokens": tok}, caches)
+        want.append(int(torch.argmax(logits[0, -1])))
+    if req.out != want:
+        raise AssertionError(f"request {req.rid}: engine tokens {req.out} "
+                             f"!= direct greedy {want}")
+    # the kernel against its plain version at each prefill shape the engine
+    # gave it (after the counts were read: these launches are not the path's)
+    shapes = sorted(set(prefills))
+    held = []
+    for B, S in shapes:
+        q, k, v = flash_inputs(torch, np, S, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, "bfloat16", S + B, B=B)
+        err, share, _ = flash_compare(
+            torch, flash_attention_bhsd, attention_ref, q, k, v, True,
+            cfg.sliding_window, FLASH_TOL["bfloat16"], rounding=True,
+            block_q=512, block_k=512)
+        held.append((B, S, err, share))
+    del q, k, v
+    log(f"[serve-stack] (b) flash == plain version at the engine's "
+        f"{len(shapes)} prefill shape(s) (B, S) {[h[:2] for h in held]}, "
+        f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.head_dim} causal "
+        f"bf16: max |err| {max(h[2] for h in held):.3g}, largest "
+        f"share {max(h[3] for h in held):.3g} of the rounding bound [{card}]")
+    summ = smet.decision_summary(eng.decisions)
+    log(f"[serve-stack] (b) {cfg.name} at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, bf16, pallas_flash) through the engine "
+        f"(oracle policy, {ENGINE_CYCLES} cycles; pool {pool.n_pages} pages "
+        f"of {pool.page_size}, {pool.n_kv} KV heads of {pool.head_dim}) over "
+        f"{name}(seed={seed}, steps={steps}): {cons['finished']}/"
+        f"{cons['submitted']} finished, 0 lost, 0 duplicated; "
+        f"{len(prefills)} prefills (re-prefills after "
+        f"{eng.preemptions} preemptions included), flash launches {flash} "
+        f"== {cfg.n_layers} x prefills, all wgmma; fused_tlb {tlb} == "
+        f"{oracle.grid_calls} grid passes x {oracle.cycles}; every logit "
+        f"finite; request {req.rid}'s {len(req.out)} tokens == a direct "
+        f"greedy prefill + decode, bit for bit; rungs {summ['rungs']}")
+    log(f"[serve-stack] (b) {eng.step_count} engine steps in {wall:.2f} s: "
+        f"{eng.step_count / wall:.2f} steps/s, {decoded} decoded tokens, "
+        f"{decoded / wall:.1f} tokens/s; oracle {oracle.seconds:.2f} s "
+        f"({oracle.seconds / wall:.1%} of wall); peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    out = dict(engine_flash_launches=flash, engine_prefills=len(prefills),
+               engine_fused_tlb_launches=tlb,
+               engine_grid_calls=oracle.grid_calls,
+               engine_steps_per_s=eng.step_count / wall,
+               engine_tokens_per_s=decoded / wall,
+               engine_oracle_share=oracle.seconds / wall,
+               engine_peak_gib=peak / 2**30,
+               engine_prefill_shapes=[list(h[:2]) for h in held],
+               engine_max_abs_err=max(h[2] for h in held))
+    del params, caches, logits, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_phase(card):
+    """Phase 14 (c): `python -m repro_torch.launch.serve` on the card, in a
+    process of its own (it loads the libraries phase 1 built)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    cons = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("conservation:")]
+    if len(cons) != 1 or not cons[0].endswith("lost 0 duplicated 0"):
+        raise AssertionError(f"launcher conservation: {cons}\n{proc.stdout}")
+    for ln in proc.stdout.splitlines():
+        log(f"[serve-stack] (c) | {ln}")
+    log(f"[serve-stack] (c) python -m repro_torch.launch.serve "
+        f"{' '.join(LAUNCHER)}: exit 0 in {wall:.1f} s [{card}]")
+    return wall
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1872,6 +2247,14 @@ def main():
     # ---- 11. the paged KV pool and its kernel ---------------------------
     paged = paged_phase(torch, np, card)
 
+    # ---- 14. the serving stack on the same builds -----------------------
+    t0 = time.perf_counter()
+    overload = overload_phase(torch, np, card, fused_tlb_round)
+    engine = engine_phase(torch, np, card, flash_attention_bhsd,
+                          fused_tlb_round)
+    launcher_s = launcher_phase(card)
+    log(f"[serve-stack] phase 14 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")
     l2 = timings[0]
@@ -1884,8 +2267,12 @@ def main():
         "launch_ms": l2["launch_ms"],
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
-        "library_ms": None, "shapes": timings, **grid, "churn": churn},
-        flash, flash_fp32,
+        "library_ms": None, "shapes": timings, **grid, "churn": churn,
+        "serving": dict(overload, engine_launches=engine[
+            "engine_fused_tlb_launches"], engine_grid_calls=engine[
+            "engine_grid_calls"])},
+        dict(flash, serving=dict(engine, launcher_s=launcher_s)),
+        flash_fp32,
         ssd,
         paged]}),
         flush=True)

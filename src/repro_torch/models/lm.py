@@ -22,7 +22,7 @@ the caches IN PLACE and returns the same tensors with a new
 Dense attention and Mamba2 layers are ported. MoE FFNs, the
 encoder-decoder (whisper) and patch-embedding (vlm) inputs, and
 int8-quantized weights raise `NotImplementedError` (ROADMAP Queue 1,
-item 10); so does jamba, whose hybrid layers carry MoE FFNs.
+item 6); so does jamba, whose hybrid layers carry MoE FFNs.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.params import TensorSpec, stack_params, tree_map
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1, item 10)"
+_UNPORTED = "is not ported yet (ROADMAP Queue 1, item 6)"
 
 
 def _check_supported(cfg: ModelConfig, run: RunConfig = None):

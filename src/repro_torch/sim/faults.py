@@ -27,8 +27,9 @@ host numpy, as the reference's; `apply_state_faults` writes the state on
 its device, every write a `torch.where` on its mask, so all-False
 operands return the state bit for bit.
 
-The serving-layer fault vocabulary (`ServingFaultPlan`) is not ported
-yet: it comes with the serving engine.
+The serving-layer vocabulary (`ServingFault`, `ServingFaultPlan`,
+`random_serving_plan`) is host data that `serving.engine.ServingEngine`
+applies at step boundaries; it is a copy of the reference's.
 """
 from __future__ import annotations
 
@@ -107,6 +108,96 @@ def random_plan(seed: int, n_segments: int, n_apps: int,
                             app=int(rng.integers(n_apps)),
                             level=int(rng.integers(len(FLUSH_LEVELS)))))
     return FaultPlan(seed=seed, faults=tuple(faults))
+
+
+# --------------------------------------------------------------------------
+# Serving-layer fault vocabulary: overload faults injected into the
+# SERVING ENGINE's host-side loop rather than the simulator state.
+# Same discipline as the sim faults — declarative, seeded, replayable
+# bit-for-bit — but applied by `ServingEngine.step` at step boundaries:
+#
+#   pool_spike      -- phantom sequences admitted under a reserved ASID
+#                      occupy KV pages for `duration` steps: a pool-
+#                      exhaustion spike the degradation ladder must ride
+#                      out (quota -> preempt -> freeze) without losing
+#                      requests.
+#   oracle_stall    -- the contention oracle misses its latency budget for
+#                      `duration` steps: the policy must fail soft to a
+#                      contention-blind equal share (rung "stalled").
+#   profile_poison  -- tenant `tenant` declares profile `profile` for
+#                      `duration` steps (a wrong-but-plausible claim): the
+#                      recalibrator must absorb the resulting misprediction
+#                      without destabilizing placement.
+
+SERVING_FAULT_KINDS = ("pool_spike", "oracle_stall", "profile_poison")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingFault:
+    """One serving-layer fault firing at engine step `step` and lasting
+    `duration` steps. `pages` sizes a pool_spike (0 = half the pool);
+    `tenant`/`profile` target a profile_poison."""
+    kind: str
+    step: int
+    duration: int = 16
+    tenant: int = 0
+    pages: int = 0
+    profile: str = "heavy"
+
+    def __post_init__(self):
+        if self.kind not in SERVING_FAULT_KINDS:
+            raise ValueError(f"serving fault kind must be one of "
+                             f"{SERVING_FAULT_KINDS}, got {self.kind!r}")
+        if self.step < 0:
+            raise ValueError(f"fault step must be >= 0, got {self.step}")
+        if self.duration < 1:
+            raise ValueError(f"fault duration must be >= 1, "
+                             f"got {self.duration}")
+        if self.pages < 0:
+            raise ValueError(f"fault pages must be >= 0, got {self.pages}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingFaultPlan:
+    """A deterministic, replayable overload schedule for the serving
+    engine (carried on `EngineConfig.fault_plan`)."""
+    seed: int = 0
+    faults: Tuple[ServingFault, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "faults", tuple(self.faults))
+
+    def at_step(self, step: int) -> Tuple[ServingFault, ...]:
+        return tuple(f for f in self.faults if f.step == step)
+
+    def validate(self, tenants: Tuple[int, ...]) -> None:
+        for f in self.faults:
+            if f.kind == "profile_poison" and f.tenant not in tenants:
+                raise ValueError(
+                    f"fault {f} poisons tenant {f.tenant}, not in the "
+                    f"declared universe {tenants}")
+
+
+def random_serving_plan(seed: int, n_steps: int,
+                        tenants: Tuple[int, ...],
+                        rate: float = 0.05) -> ServingFaultPlan:
+    """Seeded random overload plan: each step past warmup draws a fault
+    with probability `rate`; operands (kind, tenant, duration) come from
+    one generator in step order — same seed, same plan, bit for bit."""
+    rng = np.random.default_rng(seed)
+    faults = []
+    warmup = max(n_steps // 8, 4)
+    for s in range(warmup, n_steps):
+        if rng.random() >= rate:
+            continue
+        kind = SERVING_FAULT_KINDS[int(rng.integers(
+            len(SERVING_FAULT_KINDS)))]
+        faults.append(ServingFault(
+            kind=kind, step=s,
+            duration=int(rng.integers(8, 24)),
+            tenant=int(tenants[int(rng.integers(len(tenants)))]),
+            profile="heavy"))
+    return ServingFaultPlan(seed=seed, faults=tuple(faults))
 
 
 class FaultOps(NamedTuple):

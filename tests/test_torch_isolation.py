@@ -3,8 +3,11 @@
 * Importing every module of `repro_torch` leaves `jax` and every `repro.*`
   module out of `sys.modules` (checked in a fresh interpreter), and
   `chip_smoke.py` and the `scripts/torch_*.py` import neither.
-* `run_mix` with the default device runs on CUDA or raises; it never
-  carries on on the CPU. The fused round follows the device of its
+  The walk loads the serving slice (`serving/`, `launch/serve.py`,
+  `sim/profiles.py`).
+* `run_mix`, the serving engine, the contention oracle and the
+  launcher's `build_engine` with the default device run on CUDA or
+  raise; they never carry on on the CPU. The fused round follows the device of its
   tensors alone: a CPU state runs the plain round, and a plane on any
   other device goes to the kernel's wrapper, which launches or raises.
 """
@@ -26,18 +29,27 @@ from repro_torch.sim.workloads import app_matrix  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# the serving slice: every one of these must be loaded by the walk
+SERVING = ("repro_torch.sim.profiles", "repro_torch.serving.engine",
+           "repro_torch.serving.placement", "repro_torch.serving.oracle",
+           "repro_torch.serving.stream", "repro_torch.serving.metrics",
+           "repro_torch.launch.serve")
+
 _PROBE = """
 import importlib, pkgutil, sys
+SERVING = %r
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import repro_torch.sim.runner
+for name in SERVING:
+    assert name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 print(len([m for m in sys.modules if m.startswith("repro_torch")]))
 sys.exit("imported: " + ", ".join(bad) if bad else 0)
-"""
+""" % (SERVING,)
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -45,7 +57,7 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 15     # every module was loaded
+    assert int(proc.stdout.split()[-1]) >= 72     # every module was loaded
 
 
 @pytest.mark.parametrize("path", [
@@ -74,6 +86,36 @@ def test_default_device_raises_without_cuda():
         runner.run_mix("gpu-mmu", ["3DS", "BLK"], cycles=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         config.SimConfig()
+
+
+def test_serving_default_device_raises_without_cuda():
+    """The engine, the oracle, the oracle policy and the launcher's
+    `build_engine` run on the card by default; without one they raise
+    before anything runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default runs on it")
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.memmgr.kv_cache import PoolConfig
+    from repro_torch.serving.engine import (ServingEngine, stub_forwards,
+                                            stub_model_config)
+    from repro_torch.serving.oracle import ContentionOracle
+    from repro_torch.serving.placement import make_policy
+    pool = PoolConfig(n_pages=8, page_size=4, n_kv=1, head_dim=4,
+                      n_layers=1, max_seqs=2, pages_per_seq=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(stub_model_config(), None, None, pool,
+                      forwards=stub_forwards())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContentionOracle(cycles=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_policy("oracle", profiles={0: "heavy"}, cycles=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine("qwen3-4b")
+    # named, the CPU runs
+    assert ServingEngine(stub_model_config(), None, None, pool,
+                         forwards=stub_forwards(),
+                         device="cpu").pool.seq_lens.device.type == "cpu"
+    assert ContentionOracle(cycles=2, device="cpu").device.type == "cpu"
 
 
 def test_fused_round_follows_the_device(monkeypatch):

@@ -268,7 +268,7 @@ def test_unported_kinds_raise(arch, run_kw):
     cfg = pconfigs.reduced_model(pconfigs.ARCHS[arch])
     run = PRunConfig(model=cfg, shape=PShapeConfig("t", 8, 1, "train"),
                      **run_kw)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
         if run_kw:
             plm.backbone(cfg, run, {"blocks": {}},
                          torch.zeros(1, 8, cfg.d_model), None)
