@@ -28,21 +28,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                all rows in one launch) against its plain version, exactly,
                at R = 1, 3 and 16 rows of seeded inputs at both main-path
                shapes, and each row against the kernel run on that row
-               alone; its device time at R = 1 and 40 (graph replay,
+               alone; at R = 21 with rows whose lanes are all masked off
+               (7 at the L2$ shape; 18 at the PWC shape, as in the mixed
+               group's PWC round), which must come back unchanged, with
+               no hit or fill; its device time at R = 1 and 40 (graph replay,
                beside the launch floor); `run_grid` over the 8 designs x
-               3 mixes at 1200 cycles, whose 3DS+BLK cells must give the 8
-               1200-cycle goldens float-hex, with `fused_tlb` launches ==
-               the 8 passes' rounds (not rounds x rows); grid == `run_mix`
-               bitwise for ideal/pwc/mask x 2 solo mixes at 300 cycles;
-               `sweep` == the per-design `Experiment` loop (raw stats and
-               derived metrics); `predict_mixes` with `pad_rows` twice
-               sets up 1 plan, then 0 (`runner.TRACE_COUNT`); no host sync
-               in a step at R = 8 (`set_sync_debug_mode("error")`); then
-               simulated row-cycles per second of one mask pass of 600
-               cycles at R = 1, 8 and 40 (the 20 pairs of
-               `pair_workloads(n_pairs=20)` and 20 of their solos), and
-               at R = 40 a `torch.profiler` window's device time, kernels
-               and device busy share per step;
+               3 mixes at 1200 cycles as 2 passes (`ideal`'s 3 rows; the
+               other 7 designs' 21 rows, each knob per row), whose 3DS+BLK
+               cells must give the 8 1200-cycle goldens float-hex, with
+               `fused_tlb` launches == the passes' rounds, 3600 (1200 +
+               1200 x 2: the group's PWC round masks its non-pwc rows),
+               not rounds x rows; grid == `run_mix` bitwise for
+               ideal/pwc/mask x 2 solo mixes at 300 cycles (pwc and mask
+               as one pass); `sweep` == the per-design `Experiment` loop
+               (raw stats and derived metrics); `predict_mixes` with
+               `pad_rows` twice sets up 1 plan, then 0
+               (`runner.TRACE_COUNT`); no host sync in a step at R = 8
+               and in a mixed step of 7 designs x 3 mixes (R = 21)
+               (`set_sync_debug_mode("error")`); phase 4's one-design mask
+               step issues the operations it issued before per-row knobs
+               (`PARENT_MASK_STEP_OPS`, counted at the dispatcher); the
+               wall time of 8 designs x 5 pairs x 300 cycles grouped (2
+               passes) against one `run_grid` per design (8 passes), in
+               turns (grouped, per design, per design, grouped), the
+               cells equal bitwise; then simulated row-cycles per second
+               of one mask pass of 300 cycles at R = 1, 8 and 40 (the 20
+               pairs of `pair_workloads(n_pairs=20)` and 20 of their
+               solos), and at R = 40 a `torch.profiler` window's device
+               time, kernels and device busy share per step;
  13. churn  -- (run right after phase 12, on its build) the churn runner,
                `fused_tlb` in every cycle of every segment: `run_trace(
                "mask", [("3DS", "BLK")] * 4, seg_cycles=300)` gives the
@@ -1316,12 +1329,21 @@ def paged_phase(torch, np, card):
 
 GRID_ROWS_CHECKED = (1, 3, 16)       # row counts of the kernel check
 GRID_ROWS_TIMED = 40                 # rows of the timed row-axis round
+GRID_GROUP_ROWS = 21                 # 7 designs x 3 mixes: one grouped pass
 GRID_MIXES = [("3DS", "BLK"), ("3DS", None), ("BLK", None)]
 GRID_LOOP = (("ideal", "pwc", "mask"), [("3DS", None), ("BLK", None)], 300)
 SWEEP = (["ideal", "gpu-mmu", "mask"], [("3DS", "BLK"), ("MUM", "RED")],
          300)
-GRID_RATE_ROWS, GRID_RATE_CYCLES = (1, 8, 40), 600
+GRID_RATE_ROWS, GRID_RATE_CYCLES = (1, 8, 40), 300
 GRID_PROFILE_STEPS = 50
+# the 8 designs x 5 pairs, as 2 grouped passes and as 8 one-design passes
+GRID_DESIGN_MIXES, GRID_DESIGN_CYCLES = 5, 300
+# dispatcher operations of one step of phase 4's one-design `mask` pass as
+# the step issued them before per-row design knobs came in (the fused round
+# counted as one call): (an epoch step, a step between epochs); the CPU
+# test pins the same counts for every built-in design
+# (tests/test_torch_grid_designs.py PARENT_STEP_OPS)
+PARENT_MASK_STEP_OPS = (897, 845)
 
 
 def grid_rows():
@@ -1357,11 +1379,46 @@ def profile_steps(torch, cfg, dp, pm, st, cycle, steps):
     return dev_ms / steps, len(kernels) / steps, wall * 1e3 / steps
 
 
+def step_ops(torch, cfg, dp, pm, st, cycle):
+    """Dispatcher operations of one `memsys.step` (the fused round counted
+    as one call, whatever it runs inside) and the state after it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.fused_tlb import ops
+    from repro_torch.sim import memsys
+
+    class Count(TorchDispatchMode):
+        n, inside = 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not self.inside
+            return func(*args, **(kwargs or {}))
+
+    mode, kernel = Count(), ops.fused_tlb_round
+
+    def round_as_one(*a, **k):
+        mode.n += 1
+        mode.inside += 1
+        try:
+            return kernel(*a, **k)
+        finally:
+            mode.inside -= 1
+
+    ops.fused_tlb_round = round_as_one
+    try:
+        with torch.inference_mode(), mode:
+            st = memsys.step(cfg, dp, pm, st, cycle)
+    finally:
+        ops.fused_tlb_round = kernel
+    return mode.n, st
+
+
 def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
                single_rate):
     """Phase 12: the row-axis kernel and the grid layer on the card.
     Returns the fields it adds to the fused_tlb entry of the JSON line."""
-    from repro_torch.core.design import design_params, get_design
+    from repro_torch.core.design import (design_params, get_design,
+                                         stack_params)
     from repro_torch.core.mask import ALL_DESIGNS
     from repro_torch.sim import memsys, runner
     from repro_torch.sim.config import SimConfig
@@ -1393,6 +1450,37 @@ def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
         f"{max_err}) and each row == the kernel on that row alone, R in "
         f"{GRID_ROWS_CHECKED} at the L2 and PWC shapes [{card}]")
 
+    # ---- rows with every lane masked off, at a grouped pass's R --------
+    # the 7 non-ideal designs x 3 mixes as below: `pwc` holds rows 0-2, so
+    # the PWC round runs with the other 18 rows masked off; at the L2$
+    # shape, every third row off
+    R21 = GRID_GROUP_ROWS
+    idle_err = 0
+    for label, shape, idle in (("L2", L2_SHAPE, range(0, R21, 3)),
+                               ("PWC", PWC_SHAPE, range(3, R21))):
+        case = stack_cases(np, [path_case(np, *shape, "half",
+                                          seed=5000 + 31 * r)
+                                for r in range(R21)])
+        case["active"][list(idle)] = False
+        idle_err = max(idle_err, compare(torch, fused_tlb_round,
+                                         fused_tlb_access_ref, case))
+        args, kw = on_card(torch, case)
+        out = fused_tlb_round(*args, case["time"], **kw)
+        for r in idle:
+            for name, a in zip(("tags", "asids", "lru"), out):
+                if not np.array_equal(a[r].cpu().numpy(), case[name][r]):
+                    raise AssertionError(
+                        f"fused_tlb changed {name} of row {r}, whose lanes "
+                        f"are all masked off ({label}, R = {R21})")
+            if bool(out[3][r].any()) or bool(out[4][r].any()):
+                raise AssertionError(f"fused_tlb hit or filled in row {r}, "
+                                     f"whose lanes are all masked off "
+                                     f"({label}, R = {R21})")
+    log(f"[grid] fused_tlb at R = {R21} with rows masked off (L2: 7 of "
+        f"them, PWC: 18, as a mixed group's PWC round) == plain version "
+        f"(max |err| {idle_err}); every masked row's tags, asids and lru as "
+        f"they were, no hit or fill there [{card}]")
+
     times = []
     for label, shape in (("L2", L2_SHAPE), ("PWC", PWC_SHAPE)):
         for rows in (1, GRID_ROWS_TIMED):
@@ -1415,14 +1503,30 @@ def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
                 f"{plain * 1e3:.2f} us; bound {least * 1e3:.4f} us by "
                 f"{bound_by} [{card}]")
 
-    # ---- the goldens through the grid; launches == rounds --------------
+    # ---- the goldens through the grid: 2 passes, launches == rounds ----
     names = list(ALL_DESIGNS)
+    group = [n for n in names if n != "ideal"]
+    passes = []
+    grid_pass = runner._grid_pass
+    runner._grid_pass = lambda ccfg, ds, mixes: passes.append(
+        (tuple(d.name for d in ds), len(ds) * len(mixes))) \
+        or grid_pass(ccfg, ds, mixes)
     fused_tlb_round.launches = 0
     t0 = time.perf_counter()
-    grid = runner.run_grid(names, GRID_MIXES, cycles=1200, device="cuda")
+    try:
+        grid = runner.run_grid(names, GRID_MIXES, cycles=1200,
+                               device="cuda")
+    finally:
+        runner._grid_pass = grid_pass
     grid_s = time.perf_counter() - t0
     grid_launches = fused_tlb_round.launches
-    rounds = sum(1200 * (2 if n == "pwc" else 1) for n in names)
+    M = len(GRID_MIXES)
+    if passes != [(("ideal",), M), (tuple(group), len(group) * M)]:
+        raise AssertionError(f"run_grid made passes {passes}; want ideal "
+                             f"alone, then the other 7 designs as one")
+    # ideal: the L2$ round; the group: the L2$ round and the PWC round
+    # (its pwc rows' lanes, the others masked off)
+    rounds = 1200 + 1200 * 2
     for i, name in enumerate(names):
         for key, want in GOLDEN[name].items():
             got = [x.hex() for x in
@@ -1431,12 +1535,12 @@ def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
                 raise AssertionError(f"grid {name}:{key} {got} != {want}")
     if grid_launches != rounds:
         raise AssertionError(f"run_grid launched fused_tlb {grid_launches} "
-                             f"times for {rounds} rounds of 8 passes of "
-                             f"{len(GRID_MIXES)} rows")
-    log(f"[grid] run_grid 8 designs x {len(GRID_MIXES)} mixes x 1200 "
-        f"cycles: the 8 goldens float-hex; fused_tlb launches "
-        f"{grid_launches} == rounds {rounds} (rows share each launch); "
-        f"{grid_s:.1f} s [{card}]")
+                             f"times for {rounds} rounds of 2 passes of "
+                             f"{M} and {len(group) * M} rows")
+    log(f"[grid] run_grid 8 designs x {M} mixes x 1200 cycles: 2 passes "
+        f"({M} and {len(group) * M} rows), the 8 goldens float-hex; "
+        f"fused_tlb launches {grid_launches} == rounds {rounds} (rows "
+        f"share each launch); {grid_s:.1f} s [{card}]")
 
     # ---- grid == loop; sweep == Experiment loop; plans -----------------
     designs, mixes, cycles = GRID_LOOP
@@ -1494,6 +1598,71 @@ def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
     log("[grid] 5 steps of 8 rows under set_sync_debug_mode('error'): no "
         "host sync")
 
+    # ---- a mixed step: 7 designs x 3 mixes, no host sync ----------------
+    gcfg = SimConfig(design=get_design("gpu-mmu"), sim_cycles=20,
+                     device="cuda")
+    gdp = stack_params([design_params(n) for n in group], M, "cuda")
+    gpm = torch.tensor(np.stack([app_matrix(m) for _ in group
+                                 for m in GRID_MIXES]), device="cuda")
+    gst = runner.simulate(gcfg, gdp, gpm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for cycle in range(20, 25):
+                gst = memsys.step(gcfg, gdp, gpm, gst, cycle)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[grid] 5 steps of a mixed group ({len(group)} designs x {M} "
+        f"mixes = {gpm.shape[0]} rows, every knob per row but "
+        f"initial_frac/step_frac) under set_sync_debug_mode('error'): no "
+        f"host sync")
+
+    # ---- phase 4's one-design step: the parent's operations -------------
+    mcfg = SimConfig(design=get_design("mask"), sim_cycles=20,
+                     device="cuda")
+    mdp = design_params(mcfg.design)
+    mpm = torch.tensor(app_matrix(["3DS", "BLK"]), device="cuda")[None]
+    mst = runner.simulate(mcfg, mdp, mpm)
+    epoch = mcfg.design.epoch_cycles
+    ops = []
+    for cycle in (epoch - 1, epoch):           # t = epoch_cycles: an epoch
+        n, mst = step_ops(torch, mcfg, mdp, mpm, mst, cycle)
+        ops.append(n)
+    if tuple(ops) != PARENT_MASK_STEP_OPS:
+        raise AssertionError(f"run_mix's mask step issued {ops} operations "
+                             f"(epoch, between); the parent's: "
+                             f"{PARENT_MASK_STEP_OPS}")
+    log(f"[grid] phase 4's one-design mask step: {ops[0]} operations at an "
+        f"epoch, {ops[1]} between, == the parent's "
+        f"{PARENT_MASK_STEP_OPS} (fused round counted as one)")
+
+    # ---- the 8-design grid grouped against one pass per design ---------
+    dmixes = grid_rows()[:GRID_DESIGN_MIXES]
+    walls = {"grouped": [], "per_design": []}
+    for how in ("grouped", "per_design", "per_design", "grouped"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "grouped":
+            out = runner.run_grid(names, dmixes, cycles=GRID_DESIGN_CYCLES,
+                                  device="cuda")
+        else:
+            out = [runner.run_grid([n], dmixes, cycles=GRID_DESIGN_CYCLES,
+                                   device="cuda")[0] for n in names]
+        walls[how].append(time.perf_counter() - t0)
+        if how == "grouped" and len(walls[how]) == 1:
+            first = out
+        elif any(not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                 for ra, rb in zip(out, first) for a, b in zip(ra, rb)
+                 for k in a):
+            raise AssertionError(f"{how} grid != the grouped grid")
+    grouped, per_design = (float(np.mean(walls[k]))
+                           for k in ("grouped", "per_design"))
+    log(f"[grid] 8 designs x {len(dmixes)} mixes x {GRID_DESIGN_CYCLES} "
+        f"cycles: grouped (2 passes) {walls['grouped']} s, one pass per "
+        f"design (8 passes) {walls['per_design']} s, in turns; mean "
+        f"{per_design / grouped:.2f}x; the cells equal bitwise [{card}]")
+
     # ---- throughput: row-cycles per second ------------------------------
     rows_all = grid_rows()
     rates = {}
@@ -1518,7 +1687,12 @@ def grid_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
         f"{dev_ms / wall_ms:.1%} [{card}]")
     r40 = [t for t in times if t["rows"] == GRID_ROWS_TIMED]
     return dict(rows_checked=list(GRID_ROWS_CHECKED), rows_timed=r40,
-                grid_launches=grid_launches,
+                grid_launches=grid_launches, grid_passes=len(passes),
+                mask_step_ops=ops,
+                design_grid={"designs": len(names), "mixes": len(dmixes),
+                             "cycles": GRID_DESIGN_CYCLES,
+                             "grouped_s": walls["grouped"],
+                             "per_design_s": walls["per_design"]},
                 row_cycles_per_s={str(k): v for k, v in rates.items()},
                 grid_step={"rows": len(rows_all), "device_ms": dev_ms,
                            "kernels": kernels, "wall_ms": wall_ms})

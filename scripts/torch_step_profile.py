@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Where a simulated cycle's time goes, for the PyTorch port on one GPU.
 
-    python3 scripts/torch_step_profile.py [--cycles 100] [--designs mask,pwc]
+    python3 scripts/torch_step_profile.py [--cycles 100]
+        [--designs mask,pwc] [--src SRC]
 
-For each design, on the 2-app golden mix (3DS+BLK, Table 1 widths):
+`--src` (default: this checkout's `src`) is the directory whose
+`repro_torch` package is measured, so two trees can be compared in one
+call (unpack the other with `git archive` into a directory `.gitignore`
+lists). For each design, on the 2-app golden mix (3DS+BLK, Table 1
+widths), one row, the design's knobs as host scalars (as `run_mix` runs
+it); then, where the package has per-row knobs (`stack_params`), the
+mixed group of the 7 non-ideal designs x 3 mixes (R = 21):
 
+  * dispatcher operations of one step at an epoch and of one between
+    epochs, the fused round counted as one call (`chip_smoke.step_ops`);
   * host-sync check: a few steps under
     `torch.cuda.set_sync_debug_mode("error")`, which raises on a
     synchronizing CUDA call (a prototype that may miss some);
@@ -17,30 +26,30 @@ Prints one JSON line per design, then the card's name and power limit.
 """
 import argparse
 import json
-import subprocess
 import sys
 import time
 import traceback
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
 
 DESIGNS = ("ideal", "pwc", "gpu-mmu", "static", "mask", "mask-tlb",
            "mask-cache", "mask-dram")
+GROUP_MIXES = [("3DS", "BLK"), ("3DS", None), ("BLK", None)]
 
 
-def profile_design(torch, name, cycles):
-    from repro_torch.core.design import design_params, get_design
+def profile_step(torch, cs, label, cfg, dp, pm, cycles):
     from repro_torch.sim import memsys, runner
-    from repro_torch.sim.config import SimConfig
-    from repro_torch.sim.workloads import app_matrix
 
-    cfg = SimConfig(design=get_design(name), sim_cycles=20)
-    dp = design_params(cfg.design)
-    pm = torch.tensor(app_matrix(["3DS", "BLK"]), device="cuda")
+    out = {"design": label, "rows": int(pm.shape[0])}
     st = runner.simulate(cfg, dp, pm)
-    cycle = 20
-    out = {"design": name}
+    e = cfg.design.epoch_cycles
+    ops = []
+    for cycle in (e - 1, e):                # t = epoch_cycles: an epoch
+        n, st = cs.step_ops(torch, cfg, dp, pm, st, cycle)
+        ops.append(n)
+    out["ops_epoch_step"], out["ops_step"] = ops
+    cycle = e + 1
 
     torch.cuda.synchronize()
     try:
@@ -97,18 +106,39 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cycles", type=int, default=100)
     ap.add_argument("--designs", default=",".join(DESIGNS))
+    ap.add_argument("--src", default=str(ROOT / "src"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: no CUDA device is visible")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import numpy as np
+
+    import chip_smoke as cs
+    from repro_torch.core import design as pd
+    from repro_torch.sim.config import SimConfig
+    from repro_torch.sim.workloads import app_matrix
+
+    card = cs.card_line()
+    pm = torch.tensor(app_matrix(["3DS", "BLK"]), device="cuda")[None]
     for name in args.designs.split(","):
-        row = profile_design(torch, name, args.cycles)
-        row["card"] = card
-        print(json.dumps(row), flush=True)
+        d = pd.get_design(name)
+        cfg = SimConfig(design=d, sim_cycles=20, device="cuda")
+        row = profile_step(torch, cs, name, cfg, pd.design_params(d), pm,
+                           args.cycles)
+        print(json.dumps(dict(row, src=args.src, card=card)), flush=True)
+    if hasattr(pd, "stack_params"):
+        group = [n for n in DESIGNS if n != "ideal"]
+        dp = pd.stack_params([pd.design_params(n) for n in group],
+                             len(GROUP_MIXES), "cuda")
+        cfg = SimConfig(design=pd.get_design("gpu-mmu"), sim_cycles=20,
+                        device="cuda")
+        gpm = torch.tensor(np.stack([app_matrix(m) for _ in group
+                                     for m in GROUP_MIXES]), device="cuda")
+        row = profile_step(torch, cs, "group of 7", cfg, dp, gpm,
+                           args.cycles)
+        print(json.dumps(dict(row, src=args.src, card=card)), flush=True)
     print(card, flush=True)
 
 

@@ -5,10 +5,14 @@ of one policy spec per memory-system layer (translation, partition,
 tokens, bypass, dram). The paper's 8 designs are registered compositions.
 
 A design splits into a static signature (shapes and program structure)
-and `DesignParams`, the policy knobs. In this port `DesignParams` holds
-host scalars: the stages branch on them in Python, so the cycle loop
-needs no host sync. The float knobs are `np.float32`, so the arithmetic
-they enter matches the reference's float32 scalars.
+and `DesignParams`, the policy knobs. `design_params(d)` gives one
+design's knobs as host scalars; the float knobs are `np.float32`, so the
+arithmetic they enter matches the reference's float32 scalars. A pass
+whose rows hold several designs of one signature group carries
+`stack_params(...)`: each knob as its host value where every row agrees,
+as an (R,) device tensor where the rows differ. The stages branch on
+which of the two a knob is, never on a device value, so the cycle loop
+needs no host sync.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import dataclasses
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 # translation organizations (paper Fig. 2a/2b + the ideal upper bound)
 TRANSLATION_KINDS = ("ideal", "pwc", "shared_l2_tlb", "walk_only")
@@ -163,7 +168,12 @@ def canonical_design(sig: StaticSignature) -> Design:
 
 
 class DesignParams(NamedTuple):
-    """The policy plane of a Design, as host scalars."""
+    """The policy plane of a Design. From `design_params`, one design's
+    knobs as host scalars. From `stack_params`, the knobs of a pass's
+    rows: each knob is its host value where every row agrees and its (R,)
+    tensor where the rows differ; the stages take the branch of a host
+    value as it is and run a knob given as a tensor as a per-row masked
+    path."""
 
     use_l2_tlb: bool            # shared L2 TLB organization
     use_pwc: bool               # page-walk-cache organization
@@ -190,6 +200,30 @@ def design_params(d) -> DesignParams:
         thres_max=int(d.dram.thres_max),
         static_part=d.partition.kind == "static",
     )
+
+
+# the reference's leaf types of a stacked DesignParams; the rest are bool
+_ROW_DTYPES = {"initial_frac": torch.float32, "step_frac": torch.float32,
+               "thres_max": torch.int32}
+
+
+def stack_params(dps, repeat: int, device) -> DesignParams:
+    """Stack one `DesignParams` per design, each repeated for `repeat`
+    rows: design-major, row g * repeat + m is (design g, mix m), as the
+    reference's `run_grid` stacks them (`src/repro/sim/runner.py:478`).
+    A knob on which every row agrees stays its host value; one whose rows
+    differ becomes an (R,) tensor on `device`, of the reference's stacked
+    dtype: bool for the switches, float32 for the fractions, int32 for
+    `thres_max`."""
+    knobs = []
+    for f, vals in zip(DesignParams._fields, zip(*dps)):
+        if all(v == vals[0] for v in vals):
+            knobs.append(vals[0])
+        else:
+            knobs.append(torch.tensor(
+                np.repeat(np.asarray(vals), repeat),
+                dtype=_ROW_DTYPES.get(f, torch.bool), device=device))
+    return DesignParams(*knobs)
 
 
 def from_legacy(dp) -> Design:

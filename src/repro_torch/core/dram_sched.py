@@ -10,6 +10,8 @@ and per-class backlog update functionally.
 The state may carry a leading row axis (every field (R, ...)), one
 independent DRAM per row, with lanes (R, N); every per-lane scatter and
 gather runs along a row's own flattened table, so rows never collide.
+With rows, `mask_enabled` and `thres_max` may be (R,) tensors, one per
+row, where the reference takes traced scalars.
 """
 from __future__ import annotations
 
@@ -43,18 +45,25 @@ def init(n_channels: int, n_banks: int, n_apps: int, device) -> DramState:
     )
 
 
-def silver_quota(state: DramState, thres_max: int = 500) -> torch.Tensor:
+def silver_quota(state: DramState, thres_max=500) -> torch.Tensor:
     """(n_apps,) (rows: (R, n_apps)) Eq. (1) thresholds, in float32. The
-    weights are integers below 2**24, so their sum is exact in any order."""
+    weights are integers below 2**24, so their sum is exact in any order.
+    `thres_max`: an int, or an (R,) int32 tensor, one per row."""
+    if isinstance(thres_max, torch.Tensor):
+        thres_max = thres_max[:, None]
     w = (state.conc_walks * state.warps_stalled).to(torch.float32)
     tot = w.sum(-1, keepdim=True).clamp(min=1.0)
     return (thres_max * w / tot).to(torch.int32).clamp(min=1)
 
 
-def classify(state: DramState, app, is_tlb, mask_enabled: bool):
+def classify(state: DramState, app, is_tlb, mask_enabled):
     """Queue class per request: 0 golden, 1 silver, 2 normal. Disabled
     means one FR-FCFS queue: everything is class 2. app/is_tlb: (N,),
-    or (R, N) for a state with rows."""
+    or (R, N) for a state with rows; `mask_enabled`: a bool, or an (R,)
+    bool tensor, one per row."""
+    if isinstance(mask_enabled, torch.Tensor):
+        cls = classify(state, app, is_tlb, True)
+        return torch.where(mask_enabled[:, None], cls, 2)
     if not mask_enabled:
         return torch.full_like(app, 2, dtype=torch.int32)
     silver = app == state.silver_app[..., None]
@@ -62,7 +71,7 @@ def classify(state: DramState, app, is_tlb, mask_enabled: bool):
 
 
 def access(state: DramState, channel, bank, row, app, is_tlb, active,
-           mask_enabled: bool, thres_max: int = 500,
+           mask_enabled, thres_max=500,
            fr_fcfs: bool = True, waves: int = 1
            ) -> Tuple[DramState, torch.Tensor]:
     """Batched DRAM access model. channel/bank/row/active: (N,), or (R, N)
@@ -152,9 +161,10 @@ def access(state: DramState, channel, bank, row, app, is_tlb, active,
     # MASK scheduler off no request is silver, and silver_left >= 1 holds
     # in every state (it starts at 1, a rotation reloads a quota >= 1, and
     # it is otherwise only decremented while it stays > 0): nothing would
-    # rotate, so the rotation is skipped.
+    # rotate, so the rotation is skipped, and in the rows of a per-row
+    # `mask_enabled` that have it off it leaves the state as it was.
     silver_app, silver_left = state.silver_app, state.silver_left
-    if mask_enabled:
+    if isinstance(mask_enabled, torch.Tensor) or mask_enabled:
         n_apps = state.conc_walks.shape[-1]
         # the app index advances by at most one per wave, so a table of
         # waves + 1 copies of next_quota[a] = quota[(a + 1) % n_apps]

@@ -25,14 +25,25 @@ class TokenState(NamedTuple):
     first_epoch: torch.Tensor     # () bool: no bypassing during warm-up
 
 
+def _per_row(knob):
+    """A host knob as a Python float; an (R,) tensor knob as (R, 1), one
+    value per row against the (R, n_apps) planes."""
+    if isinstance(knob, torch.Tensor):
+        return knob[:, None]
+    return float(np.float32(knob))
+
+
 def init(n_apps: int, warps_per_app: torch.Tensor,
          initial_frac=np.float32(0.8)) -> TokenState:
-    """warps_per_app: (n_apps,) int32 tensor on the state's device."""
+    """warps_per_app: (n_apps,) int32 tensor on the state's device.
+    `initial_frac` may be an (R,) float32 tensor, one per row: `tokens`
+    is then (R, n_apps) and the other fields, the same in every row, keep
+    their shapes."""
     dev = warps_per_app.device
     i32 = dict(dtype=torch.int32, device=dev)
-    frac = float(np.float32(initial_frac))
     return TokenState(
-        tokens=(warps_per_app.float() * frac).to(torch.int32).clamp(min=1),
+        tokens=(warps_per_app.float() * _per_row(initial_frac))
+        .to(torch.int32).clamp(min=1),
         # fills start restricted-downward; the climb reverses if that fails
         direction=torch.full((n_apps,), -1, **i32),
         prev_miss_rate=torch.ones(n_apps, dtype=torch.float32, device=dev),
@@ -63,13 +74,14 @@ def has_token(state: TokenState, app, warp_slot) -> torch.Tensor:
 def epoch_update(state: TokenState, warps_per_app: torch.Tensor,
                  step_frac=np.float32(0.5), min_tokens: int = 1
                  ) -> TokenState:
-    """End-of-epoch token adjustment (Fig. 13b hill-climb), in float32."""
+    """End-of-epoch token adjustment (Fig. 13b hill-climb), in float32.
+    `step_frac` may be an (R,) float32 tensor, one per row."""
     total = (state.epoch_hits + state.epoch_misses).clamp(min=1)
     miss_rate = state.epoch_misses / total                  # float32
 
     improved = miss_rate <= state.prev_miss_rate - np.float32(0.01).item()
     new_dir = torch.where(improved, state.direction, -state.direction)
-    step = (state.tokens.float() * float(np.float32(step_frac))) \
+    step = (state.tokens.float() * _per_row(step_frac)) \
         .to(torch.int32).clamp(min=1)
     proposed = state.tokens + new_dir * step
     new_tokens = torch.minimum(proposed.clamp(min=min_tokens), warps_per_app)

@@ -16,14 +16,22 @@ reference:
 plus warp retire and epoch maintenance.
 
 State is NamedTuples of tensors with the reference's fields, in the
-reference's order (`sim/convert.py` carries states across). The design's
-policy knobs (`DesignParams`) and the cycle counter are host values, so
-every branch of the reference's `lax.cond`/`jnp.where` on them is a
-Python branch here and a cycle runs without a host sync.
+reference's order (`sim/convert.py` carries states across). The cycle
+counter is a host value. The design's policy knobs (`DesignParams`) come
+as host values where every row agrees: each branch of the reference's
+`lax.cond`/`jnp.where` on such a knob is a Python branch here. A knob
+whose rows differ (`core/design.py` `stack_params`) comes as an (R,)
+tensor and runs as the reference's masked form: probes and fills with
+the other rows' lanes masked off (a state no-op there), a per-row
+`torch.where` between both values, the epoch as a per-row select. Which
+of the two a knob is, is known on the host, so a cycle runs without a
+host sync, and a pass whose rows agree issues a one-design pass's
+launches.
 
 Rows. Every state tensor has a leading row axis R: R independent
-simulations of one design (the rows of `runner.run_grid`, which the
-reference vmaps), each with its own workload matrix, stepped together.
+simulations of one signature group's designs (the rows of
+`runner.run_grid`, which the reference vmaps), each with its own
+workload matrix and knobs, stepped together.
 The stages are written over that axis, with no Python loop over rows:
 a cycle issues the same launches whatever R is, and the fused rounds run
 all rows in one launch. Per-lane scatters and gathers run along each
@@ -40,6 +48,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import bypass as bp_mod
@@ -228,9 +237,14 @@ def map_state(fn, tree):
 def init_state(cfg: SimConfig, dp: DesignParams,
                rows: Optional[int] = None) -> SimState:
     """The cold-start state. `rows=None` gives the reference's single
-    state (no row axis); `rows=R` gives R identical rows, each tensor
-    (R, ...) and contiguous."""
+    state (no row axis); `rows=R` gives R rows, each tensor (R, ...) and
+    contiguous, identical but for each row's InitialTokens where `dp`
+    gives `initial_frac` per row (an (R,) tensor)."""
     W, dev = cfg.total_warps, cfg.device
+    frac = dp.initial_frac
+    per_row = isinstance(frac, torch.Tensor)
+    if per_row and rows is None:
+        raise ValueError("per-row design knobs need a state with rows")
     st = SimState(
         t=torch.zeros((), dtype=I32, device=dev),
         stall_until=torch.zeros(W, dtype=I32, device=dev),
@@ -238,8 +252,9 @@ def init_state(cfg: SimConfig, dp: DesignParams,
         pos=torch.zeros(W, dtype=I32, device=dev),
         trans=init_trans(cfg),
         data=init_data(cfg),
+        # per-row InitialTokens are set once the rows exist, below
         tokens=tok_mod.init(cfg.n_apps, _consts(cfg).warps_per_app,
-                            dp.initial_frac),
+                            np.float32(0) if per_row else frac),
         stats=init_stats(cfg.n_apps, dev),
         asid_of_app=torch.arange(cfg.n_apps, dtype=I32, device=dev),
     )
@@ -247,7 +262,41 @@ def init_state(cfg: SimConfig, dp: DesignParams,
         return st
     if rows < 1:
         raise ValueError(f"rows must be >= 1, got {rows}")
-    return map_state(lambda x: x.repeat(rows, *(1,) * x.dim()), st)
+    st = map_state(lambda x: x.repeat(rows, *(1,) * x.dim()), st)
+    if per_row:
+        tok = tok_mod.init(cfg.n_apps, _consts(cfg).warps_per_app, frac)
+        st = st._replace(tokens=st.tokens._replace(tokens=tok.tokens))
+    return st
+
+
+def _some(knob) -> bool:
+    """Whether a knob is on in any row, read from its host summary: a
+    knob given as an (R,) tensor differs between rows, so it is on in
+    some."""
+    return isinstance(knob, torch.Tensor) or bool(knob)
+
+
+def _both(a, b):
+    """Logical and of two knobs (host bools or (R,) tensors)."""
+    if not isinstance(a, torch.Tensor):
+        return b if a else False
+    if not isinstance(b, torch.Tensor):
+        return a if b else False
+    return a & b
+
+
+def _masked(lanes: torch.Tensor, knob) -> torch.Tensor:
+    """(R, N) lanes with those of the rows whose knob is off masked off;
+    a host knob (on, where this is reached) leaves them as they are."""
+    return lanes & knob[:, None] if isinstance(knob, torch.Tensor) else lanes
+
+
+def _pick(on: torch.Tensor, a, b):
+    """Per row, `a` where the (R,) bool `on` holds and `b` elsewhere: (R,
+    ...) tensors, or flat NamedTuples of them field by field."""
+    if isinstance(a, tuple):
+        return type(a)(*(_pick(on, x, y) for x, y in zip(a, b)))
+    return torch.where(on.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
 def _last_writer(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -331,8 +380,9 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
                       ) -> Tuple[TransState, TransProbe]:
     """TLB hierarchy probes/fills + page-walk lane generation.
 
-    A cache the design does not use is skipped: the reference probes and
-    fills it with an all-False mask, which leaves its state unchanged."""
+    A cache no row uses is skipped: the reference probes and fills it
+    with an all-False mask, which leaves its state unchanged. Where only
+    some rows use it, the others' lanes are masked off, as there."""
     tr = cfg.design.translation
     k = _consts(cfg)
     vpn, asid, active = sched.vpn, sched.asid, sched.active
@@ -354,32 +404,37 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
     l1_miss = active & ~l1_hit
 
     # ---------------- shared L2 TLB + bypass cache ---------------------
-    use_l2 = dp.use_l2_tlb
-    use_byp = dp.tokens_on and use_l2
+    use_l2, tok_on = dp.use_l2_tlb, dp.tokens_on
+    use_byp = _both(tok_on, use_l2)
     l2tlb, byp_tlb = trans.l2tlb, trans.bypass_tlb
     l2_hit = byp_hit = zb
-    if use_l2:
-        l2tlb, l2_hit = tlb_mod.probe(l2tlb, vpn, asid, l1_miss, t)
-    if use_byp:
+    if _some(use_l2):
+        l2tlb, l2_hit = tlb_mod.probe(l2tlb, vpn, asid,
+                                      _masked(l1_miss, use_l2), t)
+    if _some(use_byp):
         byp_tlb, byp_hit = tlb_mod.probe(byp_tlb, vpn, asid,
-                                         l1_miss & ~l2_hit, t)
+                                         _masked(l1_miss & ~l2_hit, use_byp),
+                                         t)
     l2_hit_eff = l2_hit | byp_hit
     need_walk = l1_miss & ~l2_hit_eff
 
     # ---------------- TLB fills on walk return -------------------------
     # tokens go round-robin over the app's cores in warpID order: per-core
     # allowance = tokens / cores_per_app; with tokens off every walk fills
-    if use_l2:
+    if _some(use_l2):
         fill_l2 = need_walk
-        if dp.tokens_on:
+        if _some(tok_on):
             tok_per_core = tokens.tokens[:, sched.app] \
                 // k.cores_per_app[sched.app]
             has_tok = sched.slot < tok_per_core
             first = tokens.first_epoch[:, None]
             gate = (has_tok & ~first) | first
+            if isinstance(tok_on, torch.Tensor):
+                gate = gate | ~tok_on[:, None]
             fill_l2 = need_walk & gate
-            byp_tlb = tlb_mod.fill(byp_tlb, vpn, asid, need_walk & ~gate, t)
-        l2tlb = tlb_mod.fill(l2tlb, vpn, asid, fill_l2, t)
+            byp_tlb = tlb_mod.fill(byp_tlb, vpn, asid,
+                                   _masked(need_walk & ~gate, use_l2), t)
+        l2tlb = tlb_mod.fill(l2tlb, vpn, asid, _masked(fill_l2, use_l2), t)
 
     l1 = tlb_mod.fill_bank(l1, vpn, asid, l1_miss, t)
 
@@ -412,11 +467,11 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
 
     # fused probe+fill with per-(set, level) fill ports; PTE lines are
     # unique across levels, so the PWC is tag-only
-    if dp.use_pwc:
+    if _some(dp.use_pwc):
         _, zeros, ones = _lanes(L * C, L * C, cfg.device, R)
         pwc, pwc_hit, _ = tlb_mod.access_fused(
-            trans.pwc, walk_lines, zeros, walk_active, ones, t,
-            n_waves=L, track_asids=False)
+            trans.pwc, walk_lines, zeros, _masked(walk_active, dp.use_pwc),
+            ones, t, n_waves=L, track_asids=False)
         walk_go = walk_active & ~pwc_hit
         pwc_lat = 5 * (walk_active & pwc_hit).reshape(R, L, C) \
             .sum(1, dtype=I32)
@@ -500,14 +555,22 @@ def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
 
     l2c, dram, bp_state = data.l2c, data.dram, data.bypass
     # depth 0 (data) always fills; with bypass off every lane may fill
-    may_fill = bp_mod.should_fill(bp_state, depth) if dp.bypass_on else ones
+    byp_on = dp.bypass_on
+    may_fill = bp_mod.should_fill(bp_state, depth) if _some(byp_on) \
+        else ones
+    if isinstance(byp_on, torch.Tensor):
+        may_fill = may_fill | ~byp_on[:, None]
 
     # `Static` gives each app an equal slice of the sets/channels
-    if dp.static_part:
+    static = dp.static_part
+    if _some(static):
         key = static_partition_index(lines, cfg.l2_sets, cfg.n_apps, apps)
         channel = static_partition_index(lines, cfg.n_channels, cfg.n_apps,
                                          apps)
-    else:
+    if isinstance(static, torch.Tensor):
+        key = _pick(static, key, lines % cfg.l2_sets)
+        channel = _pick(static, channel, lines % cfg.n_channels)
+    elif not static:
         key = lines % cfg.l2_sets
         channel = lines % cfg.n_channels
 
@@ -723,12 +786,15 @@ def retire(stall_until, instr, pos, sched: SchedOut, total_lat, gap, t: int):
 def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
                       tokens: tok_mod.TokenState, data: DataState, t: int
                       ) -> Tuple[tok_mod.TokenState, DataState]:
-    """Every epoch_cycles: token hill-climb, DRAM pressure, bypass latch.
+    """Every epoch_cycles: token hill-climb, DRAM pressure, bypass latch,
+    in the rows where any adaptive mechanism is on (the reference's
+    `lax.cond`, a per-row select under its vmap).
 
     `trans` must be the PRE-update translation state (the epoch-end
     census of in-flight walks)."""
-    any_adaptive = dp.tokens_on or dp.dram_on or dp.bypass_on
-    if not (any_adaptive and t % cfg.design.epoch_cycles == 0):
+    adaptive = [k for k in (dp.tokens_on, dp.dram_on, dp.bypass_on)
+                if _some(k)]
+    if not (adaptive and t % cfg.design.epoch_cycles == 0):
         return tokens, data
     na = cfg.n_apps
     walk = trans.walk                                     # (R, WT, 4)
@@ -742,10 +808,16 @@ def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
         .scatter_add_(1, slot[..., None].expand(R, WT, 2), census)
     dram = dram_sched.update_pressure(data.dram, census[..., 0],
                                       census[..., 1])
-    tokens = tok_mod.epoch_update(tokens, _consts(cfg).warps_per_app,
-                                  step_frac=dp.step_frac)
-    return tokens, data._replace(dram=dram,
-                                 bypass=bp_mod.epoch_update(data.bypass))
+    new_tok = tok_mod.epoch_update(tokens, _consts(cfg).warps_per_app,
+                                   step_frac=dp.step_frac)
+    bp = bp_mod.epoch_update(data.bypass)
+    if all(isinstance(k, torch.Tensor) for k in adaptive):
+        # no mechanism is on in every row: the epoch runs in some rows
+        on = functools.reduce(torch.logical_or, adaptive)
+        new_tok = _pick(on, new_tok, tokens)
+        dram = _pick(on, dram, data.dram)
+        bp = _pick(on, bp, data.bypass)
+    return new_tok, data._replace(dram=dram, bypass=bp)
 
 
 # ---------------------------------------------------------------------------
@@ -755,10 +827,12 @@ def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
 def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
          cycle: int) -> SimState:
     """One cycle of every row. params_mat: (R, n_apps, N_FIELDS) int32
-    workload params, one matrix per row of `state`; dp: the design's
-    policy knobs; cycle: the host copy of `state.t`. A state without the
-    row axis (`init_state(cfg, dp)`) takes an (n_apps, N_FIELDS) matrix
-    and runs as one row.
+    workload params, one matrix per row of `state`; dp: one design's
+    policy knobs, or each row's (`stack_params`: a knob the rows differ
+    on is an (R,) tensor); cycle:
+    the host copy of `state.t`. A state without the row axis
+    (`init_state(cfg, dp)`) takes an (n_apps, N_FIELDS) matrix and runs
+    as one row.
 
     Issues no host sync, and the same launches whatever R is; updates the
     shared caches' planes in place."""

@@ -16,14 +16,16 @@ Port of `repro.sim.runner`'s main path, grid layer and churn runner:
   metrics; `sweep(designs, mixes)` drives many designs.
 
 A pass is `simulate` over a state with a leading row axis: one row per
-mix, all rows stepped together by one Python loop over the cycles, so a
-cycle issues the same launches whatever the row count (the reference's
-`lax.scan` over a vmapped step). The cycle counter is kept on the host,
-so a pass issues no host sync until its final state is fetched, in one
-transfer. The design's policy knobs are host scalars that the step
-branches on (`core/design.py`), so the rows of one pass share one
-design: `run_grid` runs one pass per design, all of its mixes as rows,
-where the reference runs one per static-signature group.
+(design, mix), all rows stepped together by one Python loop over the
+cycles, so a cycle issues the same launches whatever the row count (the
+reference's `lax.scan` over a vmapped step). The cycle counter is kept on
+the host, so a pass issues no host sync until its final state is
+fetched, in one transfer. A one-design pass carries that design's knobs
+as host scalars; `run_grid` runs the designs of one static-signature
+group as the rows of one pass, as the reference does, with a knob the
+rows differ on as an (R,) tensor (`core/design.py` `stack_params`): the
+step branches on a knob where every row agrees and masks per row where
+they differ.
 
 `TRACE_COUNT` counts PLANS, not traces: the port compiles nothing, and
 a plan is one (canonical `SimConfig`, row count) that the runner has set
@@ -51,7 +53,7 @@ import torch
 
 from repro_torch.core.design import (Design, DesignParams, as_design,
                                      canonical_design, design_params,
-                                     static_signature)
+                                     stack_params, static_signature)
 from repro_torch.device import DeviceLike
 from repro_torch.sim import faults as faults_mod
 from repro_torch.sim.config import SimConfig
@@ -80,6 +82,7 @@ def simulate(cfg: SimConfig, dp: DesignParams, params_mat: torch.Tensor,
              state: Optional[SimState] = None, start: int = 0) -> SimState:
     """Run `cfg.sim_cycles` cycles; returns the state.
 
+    dp: one design's knobs, or each row's (`stack_params`).
     params_mat: (R, n_apps, N_FIELDS), one workload matrix per row, gives
     a state of R rows; an (n_apps, N_FIELDS) matrix gives the reference's
     single state, without the row axis. `state` (default: the cold start)
@@ -140,8 +143,9 @@ def _seg_plan(ccfg: SimConfig):
 
 def _run_rows(cfg: SimConfig, dp: DesignParams,
               mixes: Sequence[Tuple[Optional[str], ...]]) -> SimState:
-    """One pass of `mixes` (one row each) under `cfg`'s design; returns
-    the final state on the host (numpy leaves), in one transfer."""
+    """One pass of `mixes` (one row each) under the knobs `dp` (one
+    design's, or each row's from `stack_params`); returns the final
+    state on the host (numpy leaves), in one transfer."""
     pm = torch.tensor(np.stack([_mix_matrix(m) for m in mixes]),
                       device=cfg.device)
     return state_to_numpy(_plan(_canonical(cfg), len(mixes))(dp, pm))
@@ -347,12 +351,13 @@ def run_trace(design: DesignLike,
 
 @dataclasses.dataclass(frozen=True)
 class FailureRecord:
-    """A sweep cell (or a whole pass) that failed.
+    """A sweep cell that failed, or every cell of a failed pass.
 
     Fail-soft sweeps return these IN PLACE of stats/results instead of
-    aborting the remaining passes: one poisoned design point costs its
-    own cells, not the grid. The record carries everything needed to
-    reproduce the failure standalone."""
+    aborting the remaining passes: one poisoned design point costs the
+    cells of its pass (in `run_grid`, every design of its chunk), not the
+    grid. The record carries everything needed to reproduce the failure
+    standalone."""
     designs: Tuple[str, ...]      # design names sharing the failed call
     n_apps: int
     cycles: int
@@ -376,6 +381,18 @@ def _check_devices(devices: Optional[int]) -> None:
             "ported yet (ROADMAP.md, Queue 1); run on one device")
 
 
+def _grid_pass(ccfg: SimConfig, designs: Sequence[Design],
+               bench_mixes: Sequence[Tuple[Optional[str], ...]]
+               ) -> SimState:
+    """One pass of a chunk of one signature group: the designs' knobs
+    stacked design-major against the mixes tiled once per design, row
+    g * M + m for (designs[g], bench_mixes[m]); returns the final state
+    on the host."""
+    dp = stack_params([design_params(d) for d in designs], len(bench_mixes),
+                      ccfg.device)
+    return _run_rows(ccfg, dp, [m for _ in designs for m in bench_mixes])
+
+
 def run_grid(designs: Sequence[DesignLike],
              bench_mixes: Sequence[Tuple[Optional[str], ...]],
              cycles: int = 60_000,
@@ -384,24 +401,29 @@ def run_grid(designs: Sequence[DesignLike],
              fail_soft: bool = False,
              device: DeviceLike = None
              ) -> List[List[Union[Dict, "FailureRecord"]]]:
-    """Run the full designs x mixes cross product; returns `stats[d][m]`
-    aligned with the inputs, bit for bit equal to
+    """Run the full designs x mixes cross product, one plan per
+    static-signature group and as few passes as `max_rows` allows;
+    returns `stats[d][m]` aligned with the inputs, bit for bit equal to
     `run_mix(designs[d], bench_mixes[m], cycles)`.
 
-    Each design runs all of its mixes as the rows of one pass, with one
-    plan per (signature group, row count): as in the reference, a
-    design's mixes are never split, whatever M is. `max_rows` is kept for
-    the reference's signature: there it caps how many whole designs share
-    a call, and a pass here always serves one design (its knobs are host
-    scalars), so it changes nothing yet.
+    As in the reference, designs are grouped by `static_signature`, and a
+    group runs as the rows of one pass: its designs' knobs stacked
+    design-major against the mixes (`_grid_pass`). A group whose grid
+    exceeds `max_rows` rows runs in chunks of whole designs of EQUAL
+    width, the largest divisor of the group's size within
+    `max(max_rows // M, 1)` designs, so every chunk reuses the group's one
+    plan (rows are independent, so chunking changes no result); a
+    design's mixes are never split, whatever M is. Each chunk's final
+    state comes to the host in one transfer.
 
     `devices`: None or 1; rows over several devices are not ported yet
     and raise NotImplementedError.
 
-    `fail_soft=True` catches a failing pass (set-up error, execution
-    error, or corrupt stats) into a `FailureRecord` placed in all of its
-    design's cells, and CONTINUES with the remaining designs. Default
-    False keeps raise-on-first-error semantics.
+    `fail_soft=True` catches a failing chunk (set-up error, execution
+    error, or corrupt stats) into one `FailureRecord` naming every design
+    of the chunk, placed in every cell the chunk covered, and CONTINUES
+    with the remaining chunks and groups. Default False keeps
+    raise-on-first-error semantics.
     """
     _check_devices(devices)
     ds = [as_design(d) for d in designs]
@@ -409,19 +431,34 @@ def run_grid(designs: Sequence[DesignLike],
     if not ds:
         return []
     M = len(bench_mixes)
-    out: List[List[Union[Dict, FailureRecord]]] = []
-    for d in ds:
-        try:
-            cfg = _config(d, n, cycles, device)
-            final = _run_rows(cfg, design_params(d), bench_mixes)
-            out.append([_stats(cfg, row_of(final, m)) for m in range(M)])
-        except Exception as e:  # noqa: BLE001 — fail-soft boundary
-            if not fail_soft:
-                raise
-            out.append([FailureRecord(
-                designs=(d.name,), n_apps=n, cycles=cycles,
-                error_type=type(e).__name__, message=str(e),
-                stage="grid-chunk")] * M)
+    designs_per_call = max(max_rows // M, 1)
+    out: List[List[Union[Dict, FailureRecord]]] = [[None] * M for _ in ds]
+    groups: Dict[object, List[int]] = {}
+    for i, d in enumerate(ds):
+        groups.setdefault(static_signature(d), []).append(i)
+    for sig, g_idxs in groups.items():
+        ccfg = SimConfig(n_apps=n, sim_cycles=cycles,
+                         design=canonical_design(sig), device=device)
+        G = len(g_idxs)
+        # equal-width chunks only: a ragged tail would be a second plan
+        width = G if G <= designs_per_call else max(
+            w for w in range(1, designs_per_call + 1) if G % w == 0)
+        for lo in range(0, G, width):
+            idxs = g_idxs[lo:lo + width]
+            try:
+                final = _grid_pass(ccfg, [ds[i] for i in idxs], bench_mixes)
+                for g, di in enumerate(idxs):
+                    out[di] = [_stats(ccfg, row_of(final, g * M + m))
+                               for m in range(M)]
+            except Exception as e:  # noqa: BLE001 — fail-soft boundary
+                if not fail_soft:
+                    raise
+                rec = FailureRecord(
+                    designs=tuple(ds[i].name for i in idxs), n_apps=n,
+                    cycles=cycles, error_type=type(e).__name__,
+                    message=str(e), stage="grid-chunk")
+                for di in idxs:
+                    out[di] = [rec] * M
     return out
 
 
@@ -797,17 +834,24 @@ def sweep(designs: Sequence[DesignLike],
           ) -> Dict[str, Union[ExperimentResult, FailureRecord]]:
     """Run several designs over the same mixes, keyed by design name.
 
-    With `grid=True` (default) every (design, n_apps) slice — every mix
-    of that size, solo baselines included — runs through `run_grid`, one
-    pass per design. `grid=False` keeps the per-design
-    `Experiment` loop; results are bit for bit identical either way.
+    With `grid=True` (default) every n_apps slice — every design x every
+    mix of that size, solo baselines included — runs through `run_grid`:
+    a signature group's designs as the rows of one pass, as many as its
+    default `max_rows` of 64 holds. The solo baselines are rows of the
+    slice (a bench with idle partners), so at the paper's 20 pairs a
+    design's slice is 42 rows and each design runs as a pass of its own,
+    as in the reference; the 8 designs share 2 passes only where a
+    slice holds at most 9 rows.
+    `grid=False` keeps the per-design `Experiment` loop; results are bit
+    for bit identical either way.
 
     `devices`: None or 1 (see `run_grid`); more needs the grid path and
     is not ported yet.
 
-    `fail_soft=True`: a failing design (or per-design experiment with
-    `grid=False`) becomes a `FailureRecord` VALUE for its name, and every
-    other design's `ExperimentResult` is still computed and returned."""
+    `fail_soft=True`: a failing chunk of a group (or per-design
+    experiment with `grid=False`) becomes a `FailureRecord` VALUE for
+    each of its design names, and every other design's `ExperimentResult`
+    is still computed and returned."""
     ds: List[Design] = []
     for d in designs:
         dd = as_design(d)

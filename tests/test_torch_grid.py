@@ -9,7 +9,8 @@
   boundaries, and issues the same operations whatever R is (counted at
   the dispatcher), so no Python loop over rows hides in it.
 * `run_grid` reproduces the 8 1200-cycle float-hex goldens of
-  `tests/test_memsys_stages.py`; `convert` carries one row of a 3-row
+  `tests/test_memsys_stages.py` in 2 passes, one per signature group;
+  `convert` carries one row of a 3-row
   state to a reference tree and back; `devices=2` raises.
 * The JAX-free helpers copied from the reference (`mix_workloads`,
   `pair_workloads`, `hmr_class`, `from_legacy`, `MaskConfig`,
@@ -108,6 +109,13 @@ def _stack(cases):
     return {k: np.stack([c[k] for c in cases]) for k in cases[0]}
 
 
+def _idle_rows(rows):
+    """Every row but the middle one with all its lanes masked off, as the
+    rows of a mixed group's PWC round that hold no `pwc` design."""
+    rows["active"][[r for r in range(R) if r != R // 2]] = False
+    return rows
+
+
 def _ref_vmapped(rows, time, W):
     def one(tags, asids, lru, vpn, asid, active, may_fill):
         st = ref_tlb.TLBState(tags, asids, lru, jnp.int32(0), jnp.int32(0))
@@ -124,6 +132,10 @@ ROUND_CASES = {
                            for s in range(R)]), 8),
     "pwc": (lambda: _stack([_path_case(64, 16, 120, 4, 10 + s)
                             for s in range(R)]), 4),
+    "l2-idle-rows": (lambda: _idle_rows(_stack(
+        [_path_case(1024, 16, 240, 8, 20 + s) for s in range(R)])), 8),
+    "pwc-idle-rows": (lambda: _idle_rows(_stack(
+        [_path_case(64, 16, 120, 4, 30 + s) for s in range(R)])), 4),
     "collision": (lambda: _stack([_collision_case([8, 100]),
                                   _collision_case([100, 8]),
                                   _collision_case([8, 8])]), 1),
@@ -152,6 +164,14 @@ def test_fused_round_rows_match_vmapped_reference_and_loop(case):
                                           err_msg=f"row {r} {name}")
     if case == "collision":     # the higher lane owns the shared slot
         assert [int(x) for x in got[0][:, 0, 0]] == [100, 8, 8]
+    # a row whose lanes are all masked off is left as it was
+    idle = [r for r in range(R) if not rows["active"][r].any()]
+    assert len(idle) == (R - 1 if case.endswith("idle-rows") else 0)
+    for r in idle:
+        for k, a in zip(PLANES, got):
+            np.testing.assert_array_equal(a[r].numpy(), rows[k][r],
+                                          err_msg=f"idle row {r} {k}")
+        assert not got[3][r].any() and not got[4][r].any()
 
 
 def _no_build(*_):
@@ -330,50 +350,73 @@ def test_rows_equal_single_runs_across_epochs(name):
 
 
 class _OpCount(TorchDispatchMode):
+    """Counts dispatched operations by name; none while `inside` > 0 (a
+    caller that counts a whole call as one raises it around the call)."""
+
     def __init__(self):
         super().__init__()
         self.ops = Counter()
+        self.inside = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops[str(func)] += 1
+        if not self.inside:
+            self.ops[str(func)] += 1
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("name", ["pwc", "mask", "ideal"])
+# the 7 built-in designs of the non-ideal signature group, as one pass
+GROUP = [n for n in ref_mask.ALL_DESIGNS if n != "ideal"]
+
+
+@pytest.mark.parametrize("name", ["pwc", "mask", "ideal", "group"])
 def test_step_work_does_not_grow_with_rows(monkeypatch, name):
-    """One step at R = 1 and R = 8 dispatches the same operations, the same
-    number of times, and the same number of fused rounds (2 under `pwc`,
-    else 1): the rows share every launch."""
+    """One step at R = 1 and R = 8 rows per design dispatches the same
+    operations, the same number of times, and the same number of fused
+    rounds (2 under `pwc` and in the mixed `group` of 7 designs, whose
+    PWC round masks the other rows' lanes; else 1): the rows share every
+    launch."""
     rounds = []
     plain = fused_ops.fused_tlb_access_ref
     monkeypatch.setattr(fused_ops, "fused_tlb_access_ref",
                         lambda *a, **k: rounds.append(a[0].shape[0])
                         or plain(*a, **k))
-    cfg = SimConfig(design=name, sim_cycles=2, device="cpu")
-    dp = pt_design.design_params(cfg.design)
+    names = GROUP if name == "group" else [name]
+    cfg = SimConfig(design=names[0], sim_cycles=2, device="cpu")
     counts = {}
     for rows in (1, 8):
+        dp = pt_design.stack_params(
+            [pt_design.design_params(n) for n in names], rows, "cpu") \
+            if name == "group" else pt_design.design_params(cfg.design)
+        R = rows * len(names)
         pm = torch.tensor(pt_wl.app_matrix(["3DS", "BLK"]))[None] \
-            .repeat(rows, 1, 1)
+            .repeat(R, 1, 1)
         st = runner.simulate(cfg, dp, pm)        # warms the shape caches
         rounds.clear()
         with torch.inference_mode(), _OpCount() as mode:
             memsys.step(cfg, dp, pm, st, 2)
         counts[rows] = mode.ops
-        assert rounds == [rows] * (2 if name == "pwc" else 1)
+        assert rounds == [R] * (2 if name in ("pwc", "group") else 1)
     assert counts[1] == counts[8]
     assert sum(counts[8].values()) > 100
 
 
 # ------------------------------------------------------------ runner
 
-def test_grid_reproduces_goldens_float_hex():
-    """run_grid over the 8 designs, one mix, 1200 cycles: every cell equals
-    its `GOLDEN` pin float-hex (each design is one pass)."""
+def test_grid_reproduces_goldens_float_hex(monkeypatch):
+    """run_grid over the 8 designs, one mix, 1200 cycles: 2 passes (ideal
+    alone, then the other 7 as the rows of one pass), and every cell
+    equals its `GOLDEN` pin float-hex."""
     golden = _load_golden()
     names = list(ref_mask.ALL_DESIGNS)
+    passes = []
+    grid_pass = runner._grid_pass
+    monkeypatch.setattr(runner, "_grid_pass",
+                        lambda ccfg, ds, mixes: passes.append(
+                            tuple(d.name for d in ds))
+                        or grid_pass(ccfg, ds, mixes))
     grid = runner.run_grid(names, [("3DS", "BLK")], cycles=1200,
                            device="cpu")
+    assert passes == [("ideal",), tuple(GROUP)]
     for i, name in enumerate(names):
         for key, want in golden[name].items():
             got = [x.hex() for x in

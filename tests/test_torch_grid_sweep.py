@@ -14,10 +14,10 @@ on the same raw stats, and to the reference's laws:
   `run_grid` replaced by it): slot and row padding, `solo_cache`,
   `FailureRecord` propagation;
 * the fail-soft laws of `tests/test_failsoft.py` on the poisoned design;
-* `run_grid` runs each design's mixes as one pass whatever their count
-  (67 mixes, past the 64-row cap: one pass of 67 rows per design, counted
-  at `runner._run_rows`), and a failing pass's `FailureRecord` fills all
-  of its design's cells, as in the reference.
+* `run_grid` chunks a signature group as the reference does: a design's
+  mixes are never split (67 mixes, past the 64-row cap: one pass of 67
+  rows per design, counted at `runner._grid_pass`), and a failing pass's
+  `FailureRecord` fills all of its cells.
 """
 import dataclasses
 
@@ -64,15 +64,16 @@ def test_grid_matches_loop_float_hex(mixes):
 
 
 def _count_passes(monkeypatch):
-    """Record the row count of every pass `run_grid` makes."""
+    """Record every pass `run_grid` makes: (its designs, its rows)."""
     passes = []
-    run_rows = runner._run_rows
+    grid_pass = runner._grid_pass
 
-    def counted(cfg, dp, mixes):
-        passes.append((cfg.design.name, len(mixes)))
-        return run_rows(cfg, dp, mixes)
+    def counted(ccfg, designs, mixes):
+        passes.append((tuple(d.name for d in designs),
+                       len(designs) * len(mixes)))
+        return grid_pass(ccfg, designs, mixes)
 
-    monkeypatch.setattr(runner, "_run_rows", counted)
+    monkeypatch.setattr(runner, "_grid_pass", counted)
     return passes
 
 
@@ -89,20 +90,21 @@ def test_run_grid_chunks_equal_width(monkeypatch):
                       device="cpu")[0]
     for a, b in zip(whole, capped):
         assert _hexed(a) == _hexed(b)
-    assert passes == [("mask", 5)]
+    assert passes == [(("mask",), 5)]
     assert runner.TRACE_COUNT == before
 
 
 def test_run_grid_one_pass_per_design(monkeypatch):
     """67 mixes (prime, past the 64-row cap): one pass of 67 rows per
-    design, where chunking by divisors would make 67 passes of one row;
-    a poisoned design's `FailureRecord` fills all 67 of its cells."""
+    design (`max_rows // M` rounds up to one design a pass), where
+    chunking rows by divisors would make 67 passes of one row; a poisoned
+    design's `FailureRecord` fills all 67 of its cells."""
     from repro_torch.sim.workloads import pair_workloads
     mixes = pair_workloads(n_pairs=67)
     passes = _count_passes(monkeypatch)
     out = run_grid(["mask", "pwc", _poison()], mixes, cycles=3,
                    fail_soft=True, device="cpu")
-    assert passes == [("mask", 67), ("pwc", 67), ("poison", 67)]
+    assert passes == [(("mask",), 67), (("pwc",), 67), (("poison",), 67)]
     assert all(len(row) == 67 for row in out)
     for row in out[:2]:
         assert all(np.isfinite(c["ipc"]).all() and c["cycles"] == 3.0
