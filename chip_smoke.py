@@ -177,7 +177,58 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                repro_torch.launch.serve --arch qwen3-4b --trace
                flood_vs_trickle --steps 24 --policy oracle --faults
                --fault-rate 0.1` in a process of its own exits 0 with
-               `lost 0 duplicated 0`.
+               `lost 0 duplicated 0`; (d) full-width olmoe-1b-7b (bf16,
+               seeded random weights, `pallas_flash`) served by
+               `ServingEngine` under the `none` policy over
+               flood_vs_trickle(seed=0, steps=16), the pool at its KV
+               widths: 0 lost or duplicated, flash launches == 16 x the
+               prefills (all wgmma), every logit finite, the first
+               finished request == a direct greedy run bit for bit, the
+               kernel == its plain version at the engine's prefill
+               shapes; (e) `python -m repro_torch.launch.serve --arch
+               olmoe-1b-7b` and `--arch whisper-base` (the reduced
+               models), each in a process of its own, exit 0 with `lost 0
+               duplicated 0`.
+ 15. moe    -- olmoe-1b-7b at full width and depth (16 layers, d_model
+               2048, 64 experts of 1024, top-8; 6.92 B params, bf16,
+               seeded random weights, `pallas_flash`): 4 prompts of 2048
+               tokens through `forward_prefill`, twice (cold, then timed
+               with CUDA events around each `moe_apply`: the MoE FFNs'
+               share of the prefill's device time), flash launches == 16
+               per prefill, all wgmma; 64 greedy `forward_decode` steps at
+               B = 4 (the batch routes as one group), finite logits; two
+               runs of one MoE layer at (4, 2048) bit-equal; the kernel ==
+               its plain version at the prefill's shape; then the same
+               widths at 2 layers in fp32 (TF32 off, capacity_factor =
+               64 so no token is dropped: dropped_frac == 0 in every call)
+               as phase 7: prefill of 2 x 496 + 16 decode steps against
+               `forward_train` within 2e-3 / 5e-3, 4 flash launches on
+               the split_tf32 route;
+ 16. families -- each at full width, freed before the next, bf16, seeded
+               random weights, one prefill and greedy decode steps, the
+               flash launches per prefill counted (all wgmma) and the
+               kernel held to its plain version at the prefill's shape:
+               phi-3-vision-4.2b (32 layers; 64 seeded patch embeddings
+               ahead of 1984 tokens x 4, dh 96, 16 decode steps, 32
+               launches); whisper-base (6 + 6 layers; 1500 seeded frames,
+               4 prompts of 448 tokens, 64 decode steps, 6 launches: its
+               encoder and cross attention are naive, as the
+               reference's); mixtral-8x22b cut to 2 layers (5.41 B
+               params): one prompt of 5120 tokens, past its window of
+               4096, 8 decode steps, 2 launches, and its fp32 match
+               (capacity_factor 8, no drop) within the window as phase 7;
+               jamba-1.5-large-398b cut to one period of 8 layers at
+               d_model 2048 (16 heads, 2 KV heads of 128, d_ff 6144; 16
+               experts, top-2, MoE every 2nd layer, attention every 8th,
+               d_state 128, SSM heads of 64 kept; 3.03 B params: one
+               period at d_model 8192 is ~40 B params and does not fit
+               one card): 4 x 2048, 16 decode steps, flash 1 and ssd 7
+               launches per prefill (its SSD shape is phase 8's serving
+               shape); int8: qwen3-4b at full width and olmoe at 2 layers
+               with `quantize_weights` (the blocks by `quantize_arrays`,
+               dequantized per block): a decode step after a 4 x 512
+               prefill against bf16's under the reference's law, max |d|
+               / std(bf16 logits) < 0.1, and the step's time in both.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -836,14 +887,14 @@ def flash_phase(torch, np, kernel, card):
     return entries
 
 
-def model_setup(torch, dtype, arch=SERVE_ARCH):
-    """`arch` (qwen3-4b) at full width on the card, seeded random weights
-    in `dtype` (None: each leaf's own dtype, bf16 weights),
-    `attention_impl="pallas_flash"`."""
+def model_setup(torch, dtype, arch=SERVE_ARCH, cfg=None):
+    """`arch` (qwen3-4b) at full width on the card, or `cfg` (a config cut
+    in depth), seeded random weights in `dtype` (None: each leaf's own
+    dtype, bf16 weights), `attention_impl="pallas_flash"`."""
     from repro_torch.configs import get_model
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.models import model
-    cfg = get_model(arch)
+    cfg = cfg or get_model(arch)
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "serve", SERVE_S, SERVE_B, "prefill"), remat=False,
         attention_impl="pallas_flash")
@@ -907,12 +958,12 @@ def serve_phase(torch, np, card, arch=SERVE_ARCH, tag="serve"):
     torch.cuda.empty_cache()
 
 
-def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match"):
-    """Phases 7 and 10: prefill + decode == forward_train, full width,
-    fp32."""
+def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match", cfg=None):
+    """Phases 7 and 10 (and 15, 16 on configs cut in depth): prefill +
+    decode == forward_train, full width, fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model, cfg, run, params = model_setup(torch, torch.float32, arch)
+    model, cfg, run, params = model_setup(torch, torch.float32, arch, cfg)
     rng = np.random.RandomState(1)
     tokens = torch.tensor(rng.randint(0, cfg.vocab_size, (MATCH_B, MATCH_S)),
                           dtype=torch.int32, device="cuda")
@@ -2236,16 +2287,17 @@ def engine_phase(torch, np, card, flash_attention_bhsd, fused_tlb_round,
     return out
 
 
-def launcher_phase(card):
-    """Phase 14 (c): `python -m repro_torch.launch.serve` on the card, in a
-    process of its own (it loads the libraries phase 1 built)."""
+def launcher_phase(card, args=LAUNCHER, tag="(c)"):
+    """Phase 14 (c) and (e): `python -m repro_torch.launch.serve` on the
+    card, in a process of its own (it loads the libraries phase 1
+    built)."""
     import os
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p]))
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER],
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -2256,10 +2308,446 @@ def launcher_phase(card):
     if len(cons) != 1 or not cons[0].endswith("lost 0 duplicated 0"):
         raise AssertionError(f"launcher conservation: {cons}\n{proc.stdout}")
     for ln in proc.stdout.splitlines():
-        log(f"[serve-stack] (c) | {ln}")
-    log(f"[serve-stack] (c) python -m repro_torch.launch.serve "
-        f"{' '.join(LAUNCHER)}: exit 0 in {wall:.1f} s [{card}]")
+        log(f"[serve-stack] {tag} | {ln}")
+    log(f"[serve-stack] {tag} python -m repro_torch.launch.serve "
+        f"{' '.join(args)}: exit 0 in {wall:.1f} s [{card}]")
     return wall
+
+
+# ---- 15-16 and 14 (d)-(e): the remaining model families ------------------
+MOE_ARCH = "olmoe-1b-7b"
+MOE_MATCH_LAYERS = 2                 # the fp32 match and int8 olmoe: depth cut
+PHI_ARCH, PHI_NEW = "phi-3-vision-4.2b", 16
+WHISPER_ARCH, WHISPER_PROMPT = "whisper-base", 448
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_S, MIXTRAL_NEW = \
+    "mixtral-8x22b", 2, 5120, 8
+JAMBA_ARCH, JAMBA_NEW = "jamba-1.5-large-398b", 16
+# one period of jamba at d_model 2048: the full period at d_model 8192 is
+# ~40 B params (80 GB in bf16) and does not fit one card; heads, KV heads,
+# head dim and d_ff are cut with it, experts, top-k, moe_every, attn_every,
+# d_state and the SSM head dim are kept
+JAMBA_CUT = dict(n_layers=8, d_model=2048, n_heads=16, n_kv_heads=2,
+                 d_head=128, d_ff=6144)
+INT8_B, INT8_S, INT8_STEPS = 4, 512, 8
+INT8_LAW = 0.1                       # tests/test_quant.py: max|d| / std(ref)
+ENGINE_MOE_TRACE = ("flood_vs_trickle", 0, 16)       # preset, seed, steps
+LAUNCHERS = (["--arch", MOE_ARCH], ["--arch", WHISPER_ARCH])
+
+
+class MoeProbe:
+    """Wraps `repro_torch.models.moe.moe_apply`, which `lm` calls through
+    the module: CUDA events around each call and each call's
+    dropped_frac. The events add no launch of any kernel."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.orig = torch, moe, moe.moe_apply
+        self.events, self.dropped = [], []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def probe(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out, aux = self.orig(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            self.dropped.append(aux["dropped_frac"])
+            return out, aux
+        self.moe.moe_apply = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.orig
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+    def max_dropped(self):
+        return float(self.torch.stack(self.dropped).max())
+
+
+def cut(arch, **kw):
+    import dataclasses
+    from repro_torch.configs import get_model
+    return dataclasses.replace(get_model(arch), **kw)
+
+
+def n_attn_layers(cfg):
+    return sum(1 for k in cfg.layer_kinds() if k == "attn")
+
+
+def seeded(torch, np, shape, seed):
+    """numpy normals on the card in bf16 (frames, patch embeddings)."""
+    return torch.tensor(np.random.RandomState(seed).randn(*shape),
+                        dtype=torch.float32, device="cuda").to(torch.bfloat16)
+
+
+def hold_flash(torch, np, kernel, cfg, B, S, card, tag):
+    """The tensor-core flash kernel against its plain version at a path's
+    prefill shape (after the path's counts were read)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = flash_inputs(torch, np, S, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, "bfloat16", S + B, B=B)
+    err, share, _ = flash_compare(
+        torch, kernel, attention_ref, q, k, v, True, cfg.sliding_window,
+        FLASH_TOL["bfloat16"], rounding=True, block_q=512, block_k=512)
+    log(f"[{tag}] flash == plain version at the prefill's shape (B={B}, "
+        f"S={S}, H={cfg.n_heads}, KV={cfg.n_kv_heads}, dh={cfg.head_dim}, "
+        f"causal, window {cfg.sliding_window}, bf16): max |err| {err:.3g}, "
+        f"{share:.3g} of the rounding bound [{card}]")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return err
+
+
+def moe_phase(torch, np, card, flash):
+    """Phase 15: olmoe-1b-7b at full width and depth in bf16 (prefill twice,
+    64 decode steps, the MoE FFN's share of a prefill's device time, two
+    runs of one MoE layer bit-equal), then its fp32 match at 2 layers."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import count_params, tree_map
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, cfg, run, params = model_setup(torch, None, MOE_ARCH)
+    torch.cuda.synchronize()
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts of {cfg.expert_d_ff}, top-{cfg.top_k}, "
+        f"{count_params(params) / 1e9:.3f} B params in bf16 on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = serve_tokens(torch, np, cfg)
+    max_len = SERVE_S + SERVE_NEW
+    zero_counts(flash)
+    times = []
+    for i in range(2):                       # cold, then timed and probed
+        with MoeProbe(torch) as probe:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            logits, caches = model.forward_prefill(
+                cfg, run, params, {"tokens": tokens}, max_len=max_len)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        finite(torch, logits, "moe prefill")
+    launches = flash.launches
+    routed(flash, "wgmma", cfg.n_layers * 2,
+           f"2 {cfg.name} prefills of {cfg.n_layers} layers")
+    prefill_dev = start.elapsed_time(end)
+    moe_ms = probe.ms()
+    if len(probe.events) != cfg.n_layers:
+        raise AssertionError(f"moe_apply ran {len(probe.events)} times in a "
+                             f"prefill of {cfg.n_layers} layers")
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NEW):
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).int()
+        logits, caches = model.forward_decode(cfg, run, params,
+                                              {"tokens": tok}, caches)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    finite(torch, logits, "moe decode")
+    if caches["cache_len"].tolist() != [max_len] * SERVE_B:
+        raise AssertionError(f"cache_len {caches['cache_len'].tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    del caches, logits
+    # determinism: one MoE layer, twice, at the prefill's shape
+    lp = tree_map(lambda a: a[0], params["blocks"])["layer0"]["moe"]
+    x = seeded(torch, np, (SERVE_B, SERVE_S, cfg.d_model), 2)
+    a, aux = moe_mod.moe_apply(lp, x, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor)
+    b, _ = moe_mod.moe_apply(lp, x, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+    if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+        raise AssertionError("two runs of one MoE layer differ")
+    dropped = float(aux["dropped_frac"])
+    del params, a, b, x
+    torch.cuda.empty_cache()
+    log(f"[moe] prefill {SERVE_B} x {SERVE_S} tokens: {times[0] * 1e3:.1f} ms "
+        f"cold, {times[1] * 1e3:.1f} ms warm ({prefill_dev:.1f} ms between "
+        f"CUDA events; the {cfg.n_layers} MoE FFNs {moe_ms:.1f} ms of it, "
+        f"{moe_ms / prefill_dev:.1%}); decode {SERVE_NEW} steps at B="
+        f"{SERVE_B} (one routing group): {decode_s * 1e3 / SERVE_NEW:.2f} ms "
+        f"per step, {SERVE_B * SERVE_NEW / decode_s:.1f} tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB; flash launches {launches} == "
+        f"{cfg.n_layers} x 2 prefills, all wgmma; two runs of one MoE layer "
+        f"at ({SERVE_B}, {SERVE_S}) bit-equal (dropped_frac {dropped:.4f} "
+        f"at capacity_factor {cfg.capacity_factor}) [{card}]")
+    err = hold_flash(torch, np, flash, cfg, SERVE_B, SERVE_S, card, "moe")
+    # fp32 match at 2 layers, no token dropped
+    mcfg = cut(MOE_ARCH, n_layers=MOE_MATCH_LAYERS,
+               capacity_factor=float(cfg.n_experts))
+    zero_counts(flash)
+    with MoeProbe(torch) as probe:
+        match_phase(torch, np, card, tag="moe-match", cfg=mcfg)
+    routed(flash, "split_tf32", MOE_MATCH_LAYERS * 2,
+           f"fp32 forward_train + forward_prefill of {MOE_MATCH_LAYERS} "
+           f"layers")
+    if probe.max_dropped() != 0.0:
+        raise AssertionError(f"moe-match: dropped_frac "
+                             f"{probe.max_dropped()} at capacity_factor "
+                             f"{mcfg.capacity_factor}")
+    log(f"[moe-match] {MOE_MATCH_LAYERS} layers, capacity_factor "
+        f"{mcfg.capacity_factor:g}: dropped_frac 0 in all "
+        f"{len(probe.dropped)} MoE calls; flash {MOE_MATCH_LAYERS * 2} "
+        f"launches, all split_tf32")
+    return dict(arch=cfg.name, launches=launches,
+                per_prefill=cfg.n_layers, prefill_ms=times[1] * 1e3,
+                prefill_device_ms=prefill_dev, moe_ms=moe_ms,
+                moe_share=moe_ms / prefill_dev,
+                decode_ms_per_step=decode_s * 1e3 / SERVE_NEW,
+                decode_tokens_per_s=SERVE_B * SERVE_NEW / decode_s,
+                peak_gib=peak / 2**30, max_abs_err=err,
+                match_split_tf32_launches=MOE_MATCH_LAYERS * 2)
+
+
+def family_run(torch, np, card, flash, ssd, cfg, B, S, steps, tag,
+               extra=None, n_ssd=0):
+    """One family at full width (or cut in depth) in bf16: one prefill of
+    B prompts (`extra`: frames or patch embeddings ahead of S - patches
+    tokens), `steps` greedy decode steps; flash (and ssd) launches per
+    prefill counted. Returns its entry."""
+    from repro_torch.models.params import count_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, cfg, run, params = model_setup(torch, None, cfg=cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    n_text = S - cfg.n_patches
+    batch = {"tokens": torch.tensor(
+        rng.randint(0, cfg.vocab_size, (B, n_text)), dtype=torch.int32,
+        device="cuda")}
+    batch.update(extra or {})
+    max_len = S + steps
+    zero_counts(flash)
+    ssd.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = model.forward_prefill(cfg, run, params, batch,
+                                           max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches, ssd_launches = flash.launches, ssd.launches
+    n_attn = n_attn_layers(cfg)
+    routed(flash, "wgmma", n_attn, f"a {cfg.name} prefill of {n_attn} "
+           f"attention layers")
+    if ssd_launches != n_ssd:
+        raise AssertionError(f"{cfg.name}: ssd_intra_chunk launched "
+                             f"{ssd_launches} times, want {n_ssd}")
+    finite(torch, logits, f"{cfg.name} prefill")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).int()
+        logits, caches = model.forward_decode(cfg, run, params,
+                                              {"tokens": tok}, caches)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    finite(torch, logits, f"{cfg.name} decode")
+    if caches["cache_len"].tolist() != [max_len] * B:
+        raise AssertionError(f"cache_len {caches['cache_len'].tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{count_params(params) / 1e9:.3f} B params in bf16 ({setup_s:.1f} s "
+        f"to make); prefill of {B} x {S} rows ({', '.join(sorted(batch))}) "
+        f"{prefill_s * 1e3:.1f} ms (one call); {steps} decode steps "
+        f"{decode_s * 1e3 / steps:.2f} ms per step; flash launches "
+        f"{launches} (all wgmma), ssd launches {ssd_launches}; finite "
+        f"logits; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    del params, caches, logits, batch
+    torch.cuda.empty_cache()
+    err = hold_flash(torch, np, flash, cfg, B, S, card, tag)
+    return dict(arch=cfg.name, layers=cfg.n_layers, launches=launches,
+                ssd_launches=ssd_launches, B=B, S=S,
+                prefill_ms=prefill_s * 1e3,
+                decode_ms_per_step=decode_s * 1e3 / steps,
+                peak_gib=peak / 2**30, max_abs_err=err)
+
+
+def families_phase(torch, np, card, flash, ssd):
+    """Phase 16: phi-3-vision, whisper-base, mixtral (2 layers, a prompt
+    past its window; its fp32 match within the window), jamba (one period
+    at d_model 2048), each freed before the next."""
+    from repro_torch.configs import get_model
+    out = {}
+    phi = get_model(PHI_ARCH)
+    out["phi"] = family_run(
+        torch, np, card, flash, ssd, phi, SERVE_B, SERVE_S, PHI_NEW,
+        "families", extra={"patch_embeds": seeded(
+            torch, np, (SERVE_B, phi.n_patches, phi.d_model), 3)})
+    wh = get_model(WHISPER_ARCH)
+    out["whisper"] = family_run(
+        torch, np, card, flash, ssd, wh, SERVE_B, WHISPER_PROMPT, SERVE_NEW,
+        "families", extra={"frames": seeded(
+            torch, np, (SERVE_B, wh.enc_len, wh.d_model), 4)})
+    mx = cut(MIXTRAL_ARCH, n_layers=MIXTRAL_LAYERS)
+    out["mixtral"] = family_run(torch, np, card, flash, ssd, mx, 1,
+                                MIXTRAL_S, MIXTRAL_NEW, "families")
+    zero_counts(flash)
+    with MoeProbe(torch) as probe:
+        match_phase(torch, np, card, tag="families-match", cfg=cut(
+            MIXTRAL_ARCH, n_layers=MIXTRAL_LAYERS,
+            capacity_factor=float(mx.n_experts)))
+    routed(flash, "split_tf32", MIXTRAL_LAYERS * 2,
+           f"fp32 forward_train + forward_prefill of {MIXTRAL_LAYERS} layers")
+    if probe.max_dropped() != 0.0:
+        raise AssertionError("families-match: a token was dropped")
+    jb = cut(JAMBA_ARCH, **JAMBA_CUT)
+    n_ssm = jb.n_layers - n_attn_layers(jb)
+    out["jamba"] = family_run(torch, np, card, flash, ssd, jb, SERVE_B,
+                              SERVE_S, JAMBA_NEW, "families", n_ssd=n_ssm)
+    return out
+
+
+def int8_phase(torch, np, card, flash):
+    """Phase 16, int8: qwen3-4b at full width and olmoe at 2 layers with
+    `quantize_weights`: one decode step against bf16's under the
+    reference's law, and the decode step's time in both."""
+    import dataclasses
+    from repro_torch.models.quant import quantize_arrays
+    out = {}
+    for arch, cfg in ((SERVE_ARCH, None),
+                      (MOE_ARCH, cut(MOE_ARCH, n_layers=MOE_MATCH_LAYERS))):
+        model, cfg, run, params = model_setup(torch, None, arch, cfg)
+        tokens = torch.tensor(np.random.RandomState(5).randint(
+            0, cfg.vocab_size, (INT8_B, INT8_S)), dtype=torch.int32,
+            device="cuda")
+        logits, caches = model.forward_prefill(
+            cfg, run, params, {"tokens": tokens},
+            max_len=INT8_S + INT8_STEPS + 1)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).int()
+
+        def steps(run_, params_):
+            c = {k: v.clone() for k, v in caches.items()}
+            first, c = model.forward_decode(cfg, run_, params_,
+                                            {"tokens": tok}, c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(INT8_STEPS):
+                lg, c = model.forward_decode(cfg, run_, params_,
+                                             {"tokens": tok}, c)
+            torch.cuda.synchronize()
+            return first, (time.perf_counter() - t0) * 1e3 / INT8_STEPS
+        ref, bf16_ms = steps(run, params)
+        qparams = dict(params, blocks=quantize_arrays(params["blocks"]))
+        del params
+        torch.cuda.empty_cache()
+        got, int8_ms = steps(dataclasses.replace(run, quantize_weights=True),
+                             qparams)
+        finite(torch, got, f"{cfg.name} int8 decode")
+        rel = float((got.float() - ref.float()).abs().max()
+                    / ref.float().std().clamp_min(1e-6))
+        log(f"[int8] {cfg.name} ({cfg.n_layers} layers): a decode step after "
+            f"a {INT8_B} x {INT8_S} prefill, int8 weights vs bf16: max|d| / "
+            f"std(bf16) {rel:.4f} (law < {INT8_LAW}); decode step "
+            f"{int8_ms:.2f} ms int8 (dequantized per block), {bf16_ms:.2f} "
+            f"ms bf16 [{card}]")
+        if not rel < INT8_LAW:
+            raise AssertionError(f"{cfg.name}: int8 decode departs from bf16 "
+                                 f"by {rel:.4f} of std")
+        out[cfg.name] = dict(layers=cfg.n_layers, law=rel, int8_ms=int8_ms,
+                             bf16_ms=bf16_ms)
+        del qparams, caches, logits, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def engine_moe_phase(torch, np, card, flash, dev="cuda"):
+    """Phase 14 (d): full-width olmoe-1b-7b (bf16, `pallas_flash`) served
+    by the engine under the `none` policy; the pool at its KV widths."""
+    from repro_torch.memmgr.kv_cache import PoolConfig
+    from repro_torch.serving import metrics as smet
+    from repro_torch.serving import stream as strm
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.placement import make_policy
+
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg, run, params = model_setup(torch, None, MOE_ARCH)
+    pool = PoolConfig(n_pages=ENGINE_POOL["max_seqs"] * ENGINE_POOL[
+        "pages_per_seq"], page_size=cfg.kv_page_size, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, n_layers=cfg.n_layers, **ENGINE_POOL)
+    name, seed, steps = ENGINE_MOE_TRACE
+    trace = strm.make_trace(name, seed=seed, steps=steps)
+    finite_ok = torch.ones((), dtype=torch.bool, device=dev)
+    prefills = []
+
+    def prefill(cfg_, run_, params_, batch, max_len=None):
+        logits, caches = model.forward_prefill(cfg_, run_, params_, batch,
+                                               max_len=max_len)
+        prefills.append(tuple(batch["tokens"].shape))
+        finite_ok.logical_and_(torch.isfinite(logits.float()).all())
+        return logits, caches
+
+    def decode(cfg_, run_, params_, batch, caches):
+        logits, caches = model.forward_decode(cfg_, run_, params_, batch,
+                                              caches)
+        finite_ok.logical_and_(torch.isfinite(logits.float()).all())
+        return logits, caches
+
+    ecfg = EngineConfig(**OVERLOAD_ENGINE)
+    eng = ServingEngine(cfg, run, params, pool, ecfg,
+                        placement=make_policy("none",
+                                              profiles=trace.profiles()),
+                        profiles=trace.profiles(), forwards=(prefill, decode),
+                        device=dev)
+    torch.cuda.synchronize()
+    zero_counts(flash)
+    t0 = time.perf_counter()
+    strm.drive(eng, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash.launches
+    eng_steps = eng.step_count
+    cons = smet.conservation_report(eng)
+    if not cons["ok"] or cons["pending"]:
+        raise AssertionError(f"moe engine conservation {cons}")
+    routed(flash, "wgmma", cfg.n_layers * len(prefills),
+           f"{len(prefills)} engine prefills of {cfg.n_layers} layers")
+    if not bool(finite_ok):
+        raise AssertionError("moe engine: a non-finite logit")
+    decoded = sum(r.decoded for r in eng.finished)
+    peak = torch.cuda.max_memory_allocated()
+    req = eng.finished[0]
+    tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                             device=dev)[None]
+    logits, caches = model.forward_prefill(
+        cfg, run, params, {"tokens": tokens},
+        max_len=pool.pages_per_seq * pool.page_size)
+    want = [int(torch.argmax(logits[0, -1]))]
+    for _ in range(min(req.max_new, ecfg.decode_len_cap)):
+        tok = torch.as_tensor(np.asarray([[want[-1]]], np.int32),
+                              device=dev)
+        logits, caches = model.forward_decode(cfg, run, params,
+                                              {"tokens": tok}, caches)
+        want.append(int(torch.argmax(logits[0, -1])))
+    if req.out != want:
+        raise AssertionError(f"moe request {req.rid}: engine tokens "
+                             f"{req.out} != direct greedy {want}")
+    del params, caches, logits, eng
+    torch.cuda.empty_cache()
+    shapes = sorted(set(prefills))
+    err = max(hold_flash(torch, np, flash, cfg, B, S, card, "serve-stack")
+              for B, S in shapes)
+    log(f"[serve-stack] (d) {cfg.name} at full width ({cfg.n_layers} "
+        f"layers, bf16, pallas_flash) through the engine (policy none; pool "
+        f"{pool.n_pages} pages of {pool.page_size}, {pool.n_kv} KV heads of "
+        f"{pool.head_dim}) over {name}(seed={seed}, steps={steps}): "
+        f"{cons['finished']}/{cons['submitted']} finished, 0 lost, 0 "
+        f"duplicated; {len(prefills)} prefills, flash launches {launches} == "
+        f"{cfg.n_layers} x prefills, all wgmma; every logit finite; request "
+        f"{req.rid}'s {len(req.out)} tokens == a direct greedy prefill + "
+        f"decode, bit for bit; {eng_steps} engine "
+        f"steps in {wall:.2f} s, {decoded} decoded tokens, "
+        f"{decoded / wall:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    return dict(engine_moe_launches=launches,
+                engine_moe_prefills=len(prefills),
+                engine_moe_tokens_per_s=decoded / wall,
+                engine_moe_wall_s=wall, engine_moe_max_abs_err=err,
+                engine_moe_prefill_shapes=[list(s) for s in shapes])
+
 
 
 def main():
@@ -2427,7 +2915,28 @@ def main():
     engine = engine_phase(torch, np, card, flash_attention_bhsd,
                           fused_tlb_round)
     launcher_s = launcher_phase(card)
+    engine.update(engine_moe_phase(torch, np, card, flash_attention_bhsd))
+    engine["launchers_s"] = {args[1]: launcher_phase(card, args, "(e)")
+                             for args in LAUNCHERS}
     log(f"[serve-stack] phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15-16. the remaining model families -----------------------------
+    t0 = time.perf_counter()
+    moe = moe_phase(torch, np, card, flash_attention_bhsd)
+    log(f"[moe] phase 15 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    families = families_phase(torch, np, card, flash_attention_bhsd,
+                              ssd_intra_chunk)
+    families["int8"] = int8_phase(torch, np, card, flash_attention_bhsd)
+    log(f"[families] phase 16 took {time.perf_counter() - t0:.1f} s")
+    flash["families"] = dict(
+        {k: v for k, v in families.items() if k in ("phi", "whisper",
+                                                    "mixtral", "jamba")},
+        olmoe=moe)
+    flash_fp32["families"] = {"olmoe_match": MOE_MATCH_LAYERS * 2,
+                              "mixtral_match": MIXTRAL_LAYERS * 2}
+    ssd["jamba"] = dict(launches=families["jamba"]["ssd_launches"],
+                        per_prefill=families["jamba"]["ssd_launches"])
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")
@@ -2445,7 +2954,8 @@ def main():
         "serving": dict(overload, engine_launches=engine[
             "engine_fused_tlb_launches"], engine_grid_calls=engine[
             "engine_grid_calls"])},
-        dict(flash, serving=dict(engine, launcher_s=launcher_s)),
+        dict(flash, serving=dict(engine, launcher_s=launcher_s),
+             int8=families["int8"]),
         flash_fp32,
         ssd,
         paged]}),

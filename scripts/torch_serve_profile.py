@@ -2,10 +2,11 @@
 """Where the model's serving path spends its time, for the PyTorch port on
 one GPU.
 
-    python3 scripts/torch_serve_profile.py [--arch qwen3-4b|mamba2-1.3b]
+    python3 scripts/torch_serve_profile.py \
+        [--arch qwen3-4b|mamba2-1.3b|olmoe-1b-7b]
 
-The serving shape of `chip_smoke.py` phase 6 (qwen3-4b, the default) or
-phase 9 (mamba2-1.3b), from its own setup: the model at full width in
+The serving shape of `chip_smoke.py` phase 6 (qwen3-4b, the default),
+phase 9 (mamba2-1.3b) or phase 15 (olmoe-1b-7b), from its own setup: the model at full width in
 bf16, random weights from a seeded generator on the card,
 `attention_impl="pallas_flash"`, 4 prompts of 2048 tokens, caches of
 2048 + 64 positions. After a warm-up prefill and decode step, for the
@@ -16,8 +17,9 @@ prefill and for 8 greedy decode steps:
     kernel times; one stream, so kernels do not overlap), kernel
     launches, the device busy share (device ms over the traced wall ms),
     the path kernel's launches, device ms and share of the device time
-    (the tensor-core flash attention kernel for qwen3-4b, the SSD
-    intra-chunk kernel for mamba2-1.3b), and the kernels with the most device time.
+    (the tensor-core flash attention kernel for qwen3-4b and
+    olmoe-1b-7b, the SSD intra-chunk kernel for mamba2-1.3b), and the
+    kernels with the most device time.
 
 Prints one JSON line per phase, then the card's name and power limit.
 """
@@ -37,7 +39,8 @@ STEPS = 8                          # decode steps timed, then traced
 # the hand-written kernel on each arch's bf16 serving path, by its CUDA
 # name: the tensor-core flash kernel, the SSD intra-chunk kernel
 PATH_KERNEL = {"qwen3-4b": "flash_wgmma_kernel",
-               "mamba2-1.3b": "ssd_intra_kernel"}
+               "mamba2-1.3b": "ssd_intra_kernel",
+               "olmoe-1b-7b": "flash_wgmma_kernel"}
 
 
 def trace(torch, fn, n):

@@ -1,11 +1,15 @@
-"""Model assembly for decoder LMs with attention and Mamba2 (SSM) layers.
+"""Model assembly: decoder LMs with attention, Mamba2 (SSM) and hybrid
+layers, dense or MoE FFNs, an encoder-decoder (whisper) and patch inputs
+(vlm); weights in bf16 or int8.
 
 The structure is the reference's: an embedding, a loop over parameter
-*blocks* (a block = the smallest repeating layer pattern; the block
-params are stacked along a leading axis of R repeats), a final norm and a
-(possibly tied) vocab projection. Where the reference scans over the
+*blocks* (a block = the smallest repeating layer pattern: one layer for
+homogeneous models, 8 for jamba's 1:7 attention:mamba interleave; the
+block params are stacked along a leading axis of R repeats), a final norm
+and a (possibly tied) vocab projection. Where the reference scans over the
 stacked axis with `lax.scan`, the port loops in Python over views
-`blocks[...][i]`.
+`blocks[...][i]`; with `run.quantize_weights` each block's {"q", "scale"}
+leaves are dequantized to bf16 as the block runs (`models/quant.py`).
 
 Modes:
   * ``full``   — train / prefill over (B, S); optionally emits KV caches.
@@ -14,15 +18,17 @@ Modes:
 Caches are dicts with the reference's keys: ``cache_len`` (B,) int32;
 ``k``/``v`` of shape (R, n_attn, B, S, KV, dh) when there are attention
 layers; ``ssm_h`` (R, n_ssm, B, nh, hd, ds) float32 and ``ssm_conv``
-(R, n_ssm, B, W-1, conv_dim) when there are SSM layers.
+(R, n_ssm, B, W-1, conv_dim) when there are SSM layers; ``cross_k`` /
+``cross_v`` (R, n_attn, B, enc_len, KV, dh) for the encoder-decoder,
+built at prefill from the encoder's output and only read at decode.
 `forward_decode` writes the new token's k/v and the new SSM state into
 the caches IN PLACE and returns the same tensors with a new
 ``cache_len``.
 
-Dense attention and Mamba2 layers are ported. MoE FFNs, the
-encoder-decoder (whisper) and patch-embedding (vlm) inputs, and
-int8-quantized weights raise `NotImplementedError` (ROADMAP Queue 1,
-item 6); so does jamba, whose hybrid layers carry MoE FFNs.
+The MoE FFNs' aux losses are summed per layer as `lb_loss + 1e-3 *
+z_loss` (`forward_train` returns the sum). The reference's `remat` only
+moves memory in its backward pass and changes no value; the port runs no
+backward pass and ignores it.
 """
 from __future__ import annotations
 
@@ -35,20 +41,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.params import TensorSpec, stack_params, tree_map
-
-_UNPORTED = "is not ported yet (ROADMAP Queue 1, item 6)"
-
-
-def _check_supported(cfg: ModelConfig, run: RunConfig = None):
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: moe layers {_UNPORTED}")
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"{cfg.name}: is_enc_dec {_UNPORTED}")
-    if cfg.n_patches:
-        raise NotImplementedError(f"{cfg.name}: n_patches {_UNPORTED}")
-    if run is not None and run.quantize_weights:
-        raise NotImplementedError(f"quantize_weights {_UNPORTED}")
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.params import (Param, TensorSpec, stack_params,
+                                       tree_leaves, tree_map)
+from repro_torch.models.quant import dequant_tree
 
 
 # ---------------------------------------------------------------------------
@@ -75,17 +71,23 @@ def _layer_param_tree(cfg: ModelConfig, kind: str, ffn: str) -> Dict[str, Any]:
     if kind == "attn":
         p["attn"] = attn_mod.attn_params(
             d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+        if cfg.is_enc_dec:
+            p["cross_norm"] = L.rmsnorm_params(d)
+            p["cross"] = attn_mod.attn_params(
+                d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, False)
     else:
         p["ssm"] = m2.mamba2_params(cfg)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or ffn == "moe":
         p["norm2"] = L.rmsnorm_params(d)
-        p["mlp"] = L.mlp_params(d, cfg.d_ff)
+        if ffn == "moe":
+            p["moe"] = moe_mod.moe_params(d, cfg.expert_d_ff, cfg.n_experts)
+        else:
+            p["mlp"] = L.mlp_params(d, cfg.d_ff)
     return p
 
 
 def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """Full model Param-spec tree (see repro_torch.models.params)."""
-    _check_supported(cfg)
     P, kinds, ffns = block_pattern(cfg)
     R = cfg.n_layers // P
     block = {f"layer{j}": _layer_param_tree(cfg, kinds[j], ffns[j])
@@ -98,6 +100,23 @@ def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = L.lm_head_params(cfg.padded_vocab, cfg.d_model)
+    if cfg.n_patches:
+        specs["patch_proj"] = {
+            "w": Param((cfg.d_model, cfg.d_model), ("embed", "embed2"))}
+    if cfg.is_enc_dec:
+        enc_layer = {
+            "norm1": L.rmsnorm_params(cfg.d_model),
+            "attn": attn_mod.attn_params(
+                cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                False),
+            "norm2": L.rmsnorm_params(cfg.d_model),
+            "mlp": L.mlp_params(cfg.d_model, cfg.d_ff),
+        }
+        specs["encoder"] = {
+            "blocks": stack_params([enc_layer] * cfg.n_enc_layers)
+            if cfg.n_enc_layers > 1 else enc_layer,
+            "norm": L.rmsnorm_params(cfg.d_model),
+        }
     return specs
 
 
@@ -107,8 +126,8 @@ def build_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     """Shape/dtype tree of the decode cache. SWA archs get a ring buffer
-    bounded by the window; SSM layers get O(1) state."""
-    _check_supported(cfg)
+    bounded by the window; SSM layers get O(1) state; the encoder-decoder
+    gets the cross-attention k/v over its enc_len frames."""
     P, kinds, _ = block_pattern(cfg)
     R = cfg.n_layers // P
     n_attn = sum(1 for k in kinds if k == "attn")
@@ -126,6 +145,11 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
         out["ssm_h"] = TensorSpec((R, n_ssm) + st.h.shape, st.h.dtype)
         out["ssm_conv"] = TensorSpec((R, n_ssm) + st.conv.shape,
                                      st.conv.dtype)
+    if cfg.is_enc_dec and n_attn:
+        ckv = TensorSpec((R, n_attn, batch, cfg.enc_len, cfg.n_kv_heads,
+                          cfg.head_dim), torch.bfloat16)
+        out["cross_k"] = ckv
+        out["cross_v"] = ckv
     return out
 
 
@@ -181,36 +205,91 @@ def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len):
     return o @ lp["attn"]["wo"]
 
 
+def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None):
+    """Cross attention over the encoder's frames: k/v projected from
+    `enc_out` in full mode, read from the cache (`cross_kv`) in decode.
+    Naive (all frames at once) when S == 1 or S * enc_len <= 2**20, else
+    q-blocked with the whole k/v per block, as the reference."""
+    B, S, _ = x.shape
+    dh, KV = cfg.head_dim, cfg.n_kv_heads
+    q = (x @ lp["cross"]["wq"]).reshape(B, S, cfg.n_heads, dh)
+    if cross_kv is None:
+        k = (enc_out @ lp["cross"]["wk"]).reshape(B, -1, KV, dh)
+        v = (enc_out @ lp["cross"]["wv"]).reshape(B, -1, KV, dh)
+    else:
+        k, v = cross_kv
+    if S == 1 or S * k.shape[1] <= 1 << 20:
+        o = attn_mod.naive_attention(q, k, v, causal=False)
+    else:
+        bq = S // max(1, S // min(run.attn_block_q, S))
+        while S % bq:
+            bq -= 1
+        o = attn_mod.blocked_attention(q, k, v, causal=False, block_q=bq,
+                                       block_k=k.shape[1])
+    o = o.reshape(B, S, cfg.n_heads * dh)
+    return o @ lp["cross"]["wo"], (k, v)
+
+
 def _ffn(cfg, run, lp, x):
-    return L.mlp(lp["mlp"], x)
+    """Dense SwiGLU or MoE FFN. Returns (y, aux dict or None)."""
+    if "moe" in lp:
+        return moe_mod.moe_apply(lp["moe"], x, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor)
+    return L.mlp(lp["mlp"], x), None
 
 
 # ---------------------------------------------------------------------------
 # Backbone
 # ---------------------------------------------------------------------------
 
+def _stacked(blocks_out, field):
+    return torch.stack([torch.stack([field(e) for e in b])
+                        for b in blocks_out])
+
+
+def _check_stacked(blocks, R: int):
+    """Every leaf of stacked blocks leads with the R repeats, as the
+    reference's `lax.scan` over them demands (it raises ValueError
+    otherwise). An int8 tree misses this where a stacked 1-D bf16 leaf
+    (Mamba2's conv_b) was quantized as a 2-D weight, its scales over the
+    layer axis: the reference refuses it, and so does the port (ROADMAP
+    Queue 3)."""
+    sizes = sorted({int(a.shape[0]) if a.dim() else -1
+                    for a in tree_leaves(blocks)})
+    if sizes != [R]:
+        raise ValueError(f"blocks: leaves lead with axis sizes {sizes}, not "
+                         f"the {R} stacked repeats")
+
+
 def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
-             mode: str = "full", caches=None, build_cache=False):
+             mode: str = "full", caches=None, enc_out=None,
+             build_cache=False):
     """x: (B,S,d) embedded inputs. Returns (hidden, new_caches, aux_losses).
     In decode mode the k/v caches and the SSM state are updated in place
-    (the state is cast to the cache's dtype)."""
-    _check_supported(cfg, run)
+    (the state is cast to the cache's dtype); the cross k/v are read."""
     P, kinds, _ = block_pattern(cfg)
     R = cfg.n_layers // P
     attn_ix = [j for j in range(P) if kinds[j] == "attn"]
     ssm_ix = [j for j in range(P) if kinds[j] == "ssm"]
     blocks = params["blocks"]
+    if R > 1:
+        _check_stacked(blocks, R)
     cache_len = caches["cache_len"] if caches else None
-    kv_out, ssm_out = [], []
+    decode = mode == "decode"
+    kv_out, ssm_out, cross_out = [], [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(R):
         bp = tree_map(lambda a, _r=r: a[_r], blocks) if R > 1 else blocks
-        block_kv, block_ssm = [], []
+        if run.quantize_weights:
+            bp = dequant_tree(bp)       # this block's bf16 weights only
+        block_kv, block_ssm, block_cross = [], [], []
+        aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(P):
             lp = bp[f"layer{j}"]
             h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
             if kinds[j] == "attn":
                 a = attn_ix.index(j)
-                if mode == "decode":
+                if decode:
                     o = _self_attention_decode(
                         cfg, run, lp, h, caches["k"][r, a],
                         caches["v"][r, a], cache_len)
@@ -219,9 +298,19 @@ def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
                         cfg, run, lp, h, positions, build_cache)
                     if build_cache:
                         block_kv.append(kv)
+                x = x + o
+                if cfg.is_enc_dec:
+                    h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+                    ckv = ((caches["cross_k"][r, a], caches["cross_v"][r, a])
+                           if decode else None)
+                    o, ckv = _cross_attention(cfg, run, lp, h,
+                                              enc_out=enc_out, cross_kv=ckv)
+                    x = x + o
+                    if build_cache:
+                        block_cross.append(ckv)
             else:
                 m = ssm_ix.index(j)
-                if mode == "decode":
+                if decode:
                     st = m2.SSMState(h=caches["ssm_h"][r, m],
                                      conv=caches["ssm_conv"][r, m])
                     o, new = m2.mamba2_decode(lp["ssm"], cfg, h, st)
@@ -231,34 +320,65 @@ def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
                     o, st = m2.mamba2_forward(lp["ssm"], cfg, h)
                     if build_cache:
                         block_ssm.append(st)
-            x = x + o
+                x = x + o
             if "norm2" in lp:
                 h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-                x = x + _ffn(cfg, run, lp, h)
-        if block_kv:
-            kv_out.append(block_kv)
-        if block_ssm:
-            ssm_out.append(block_ssm)
+                y, ffn_aux = _ffn(cfg, run, lp, h)
+                x = x + y
+                if ffn_aux is not None:
+                    aux_b = (aux_b + ffn_aux["lb_loss"]
+                             + 1e-3 * ffn_aux["z_loss"])
+        aux = aux + aux_b
+        for out, block_out in ((kv_out, block_kv), (ssm_out, block_ssm),
+                               (cross_out, block_cross)):
+            if block_out:
+                out.append(block_out)
 
-    if mode == "decode":
+    if decode:
         new_caches = dict(caches, cache_len=cache_len + 1)
     elif build_cache:
-        def stacked(blocks_out, field):
-            return torch.stack([torch.stack([field(e) for e in b])
-                                for b in blocks_out])
         new_caches = {"cache_len": torch.full(
             (x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)}
-        if kv_out:
-            new_caches["k"] = stacked(kv_out, lambda kv: kv[0])
-            new_caches["v"] = stacked(kv_out, lambda kv: kv[1])
-        if ssm_out:
-            new_caches["ssm_h"] = stacked(ssm_out, lambda st: st.h)
-            new_caches["ssm_conv"] = stacked(ssm_out, lambda st: st.conv)
+        for key, blocks_out, field in (
+                ("k", kv_out, lambda kv: kv[0]),
+                ("v", kv_out, lambda kv: kv[1]),
+                ("ssm_h", ssm_out, lambda st: st.h),
+                ("ssm_conv", ssm_out, lambda st: st.conv),
+                ("cross_k", cross_out, lambda kv: kv[0]),
+                ("cross_v", cross_out, lambda kv: kv[1])):
+            if blocks_out:
+                new_caches[key] = _stacked(blocks_out, field)
     else:
         new_caches = None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def encode(cfg: ModelConfig, run: RunConfig, params, frames):
+    """frames: (B, enc_len, d) precomputed frame embeddings (the frontend is
+    a stub, as in the reference), in the params' dtype. Bidirectional
+    attention: naive when enc_len <= 2048, else `run.attention_impl`."""
+    enc = params["encoder"]
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    impl = "naive" if frames.shape[1] <= 2048 else run.attention_impl
+    n = cfg.n_enc_layers
+    x = frames
+    for i in range(n):
+        lp = tree_map(lambda a, _i=i: a[_i], enc["blocks"]) if n > 1 \
+            else enc["blocks"]
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        q, k, v = attn_mod.project_qkv(
+            lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            dh=cfg.head_dim, positions=positions, rope_theta=cfg.rope_theta)
+        o = attn_mod.attention(q, k, v, impl=impl, causal=False)
+        x = x + o.reshape(*o.shape[:2], -1) @ lp["attn"]["wo"]
+        h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp(lp["mlp"], h)
+    return L.rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +386,15 @@ def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg, params, batch):
-    """Assemble (B,S,d) input embeddings from the batch dict."""
-    return L.embed(params["embed"], batch["tokens"])
+    """Assemble (B,S,d) input embeddings from the batch dict: the patch
+    embeddings (projected) ahead of the token embeddings when the config
+    has patches and the batch carries them."""
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.n_patches and "patch_embeds" in batch:
+        pe, w = attn_mod._common(batch["patch_embeds"],
+                                 params["patch_proj"]["w"])
+        x = torch.cat([(pe @ w).to(x.dtype), x], dim=1)
+    return x
 
 
 def logits_fn(cfg, params, hidden):
@@ -281,25 +408,37 @@ def _positions(x):
     return torch.arange(x.shape[1], device=x.device)[None, :]
 
 
+def _encoder_out(cfg, run, params, batch):
+    return encode(cfg, run, params, batch["frames"]) if cfg.is_enc_dec \
+        else None
+
+
 def forward_train(cfg, run, params, batch):
     """Forward only. Returns (logits, aux_loss)."""
+    enc_out = _encoder_out(cfg, run, params, batch)
     x = embed_inputs(cfg, params, batch)
-    h, _, aux = backbone(cfg, run, params, x, _positions(x), mode="full")
+    h, _, aux = backbone(cfg, run, params, x, _positions(x), mode="full",
+                         enc_out=enc_out)
     return logits_fn(cfg, params, h), aux
 
 
 def forward_prefill(cfg, run, params, batch, max_len):
     """Returns (last-token logits, caches ready for decode)."""
+    enc_out = _encoder_out(cfg, run, params, batch)
     x = embed_inputs(cfg, params, batch)
     h, caches, _ = backbone(cfg, run, params, x, _positions(x), mode="full",
-                            build_cache=True)
+                            enc_out=enc_out, build_cache=True)
     logits = logits_fn(cfg, params, h[:, -1:])
     return logits, _pad_prefill_caches(cfg, caches, max_len)
 
 
 def _pad_prefill_caches(cfg, caches, max_len):
     """Grow prefill KV to the decode cache capacity (right-padded); SSM
-    state stays as it is."""
+    state and cross k/v stay as they are. Under a sliding window narrower
+    than the prompt the LAST `window` positions are kept at ring slots
+    0..window-1, as in the reference, whose decode then writes position p
+    at slot p % window: a key still inside the window is overwritten
+    (ROADMAP Queue 3)."""
     out = dict(caches)
     for key in ("k", "v"):
         if key in caches:
@@ -315,11 +454,12 @@ def _pad_prefill_caches(cfg, caches, max_len):
     return out
 
 
-def forward_decode(cfg, run, params, token_batch, caches):
+def forward_decode(cfg, run, params, token_batch, caches, enc_out=None):
     """token_batch: {'tokens': (B,1)}; returns (logits (B,1,V), caches).
     The caches' k/v and SSM state are updated in place; the returned dict
-    holds the same tensors and cache_len + 1."""
+    holds the same tensors and cache_len + 1. `enc_out` is taken for the
+    reference's signature: decode reads the cross k/v from the caches."""
     x = embed_inputs(cfg, params, token_batch)
     h, new_caches, _ = backbone(cfg, run, params, x, None, mode="decode",
-                                caches=caches)
+                                caches=caches, enc_out=enc_out)
     return logits_fn(cfg, params, h), new_caches

@@ -18,7 +18,8 @@ On the CPU the port's `ssd_chunked` runs the SSD kernel's plain version.
 * Decode == chunked scan as a law of the port alone (the reference test's
   atol 1e-4, rtol 1e-3), and prefill + decode == `forward_train`.
 * Param specs, cache shapes and the bf16 bits of params and caches carry
-  across; jamba (hybrid with MoE FFNs) still raises.
+  across; jamba's hybrid period has the reference's specs and caches
+  (its forwards: `tests/test_torch_model_families.py`).
 """
 import dataclasses
 
@@ -208,10 +209,26 @@ def test_param_specs_and_cache_shapes_match_reference():
     assert all(int(t.abs().sum()) == 0 for t in cache.values())
 
 
-def test_jamba_still_raises():
+def test_jamba_param_specs_and_cache_shapes_match_reference():
+    """The hybrid: one period of 8 layers (Mamba2 and one attention layer,
+    MoE FFNs every 2nd layer) in the reference's specs and caches."""
+    cfg = reduced_model(ARCHS["jamba-1.5-large-398b"])
     pcfg = pconfigs.reduced_model(pconfigs.ARCHS["jamba-1.5-large-398b"])
-    with pytest.raises(NotImplementedError, match="moe layers"):
-        pM.param_specs(pcfg)
+    jspecs = _flat(jlm.build_param_specs(cfg))
+    pspecs = _flat(plm.build_param_specs(pcfg))
+    assert jspecs.keys() == pspecs.keys()
+    for key, p in jspecs.items():
+        q = pspecs[key]
+        assert (q.shape, q.axes, q.init, q.scale, q.const) == \
+            (p.shape, p.axes, p.init, p.scale, p.const), key
+        assert str(q.dtype).split(".")[-1] == jnp.dtype(p.dtype).name, key
+    assert sum("/moe/router" in k for k in pspecs) == 4
+    assert sum("/ssm/" in k and k.endswith("A_log") for k in pspecs) == 7
+    jc = jlm.cache_shapes(cfg, 3, 40)
+    pc = pM.cache_shapes(pcfg, 3, 40)
+    assert {k: (s.shape, jnp.dtype(s.dtype).name) for k, s in jc.items()} \
+        == {k: (s.shape, str(s.dtype).split(".")[-1]) for k, s in pc.items()}
+    assert set(pc) == {"cache_len", "k", "v", "ssm_h", "ssm_conv"}
 
 
 # ---------------------------------------------------------------------------

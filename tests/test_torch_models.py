@@ -18,10 +18,15 @@ on the CPU.
 * The port's own prefill + decode against its own `forward_train`
   (teacher forcing), with the reference test's tolerances (2e-3 prefill,
   5e-3 decode).
-* Entry points default to the card and raise without one; unported layer
-  kinds raise `NotImplementedError`.
+* Entry points default to the card and raise without one.
+* The (arch, run option) pairs the port refused before the MoE,
+  encoder-decoder, patch and int8 paths were ported (mixtral, whisper,
+  phi-3-vision, jamba; int8 mamba2 and qwen3): prefill + decode against
+  the reference (`tests/test_torch_model_families.py` has these families
+  in full).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -37,6 +42,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import model as jM  # noqa: E402
+from repro.models import quant as jquant  # noqa: E402
 from repro.models.params import materialize as jmaterialize  # noqa: E402
 from repro_torch import configs as pconfigs  # noqa: E402
 from repro_torch.configs.base import RunConfig as PRunConfig  # noqa: E402
@@ -47,6 +53,7 @@ from repro_torch.models import layers as pL  # noqa: E402
 from repro_torch.models import lm as plm  # noqa: E402
 from repro_torch.models import model as pM  # noqa: E402
 from repro_torch.models.params import materialize, tree_leaves  # noqa: E402
+from tests import test_torch_model_families as families  # noqa: E402
 
 TOL32 = 1e-5
 TOL16 = 3e-2
@@ -260,20 +267,57 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("arch,run_kw", [
     ("mixtral-8x22b", {}),
-    ("mamba2-1.3b", {"quantize_weights": True}),   # ssm layers are ported
+    ("mamba2-1.3b", {"quantize_weights": True}),
     ("whisper-base", {}),
     ("phi-3-vision-4.2b", {}), ("jamba-1.5-large-398b", {}),
     ("qwen3-4b", {"quantize_weights": True})])
-def test_unported_kinds_raise(arch, run_kw):
-    cfg = pconfigs.reduced_model(pconfigs.ARCHS[arch])
-    run = PRunConfig(model=cfg, shape=PShapeConfig("t", 8, 1, "train"),
-                     **run_kw)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        if run_kw:
-            plm.backbone(cfg, run, {"blocks": {}},
-                         torch.zeros(1, 8, cfg.d_model), None)
-        else:
-            pM.param_specs(cfg)
+def test_formerly_unported_kinds_match_reference(arch, run_kw):
+    """The (arch, run option) pairs the port refused before its MoE,
+    encoder-decoder, patch-input and int8 paths: prefill + 2 decode steps
+    against the reference. int8 in bf16 (the reference's quantized blocks
+    carried across; 3e-2 of the largest |logit|), the rest in fp32 with the
+    reference jitted (1e-5 of it). int8 mamba2 is refused by both with a
+    ValueError: its stacked 1-D conv_b is quantized as a 2-D weight with
+    scales over the layer axis, which the reference's scan rejects
+    (ROADMAP Queue 3)."""
+    quant = run_kw.get("quantize_weights", False)
+    dtype = "bfloat16" if quant else "float32"
+    cfg, run, params, pcfg, prun, pparams, _ = _setup(arch, dtype)
+    run = dataclasses.replace(run, **run_kw)
+    prun = dataclasses.replace(prun, **run_kw)
+    if quant:
+        params = dict(params, blocks=jquant.quantize_arrays(params["blocks"]))
+        pparams = convert.tree_from_numpy(jax.device_get(params), "cpu")
+        assert any(t.dtype == torch.int8 for t in tree_leaves(pparams))
+    jb, pb = families._batch(cfg, dtype, 8)
+    if arch == "mamba2-1.3b":
+        with pytest.raises(ValueError, match="leading axis sizes"):
+            jM.forward_prefill(cfg, run, params,
+                               dict(jb, tokens=jb["tokens"][:, :8]),
+                               max_len=16)
+        with pytest.raises(ValueError, match="not the 4 stacked repeats"):
+            pM.forward_prefill(pcfg, prun, pparams,
+                               dict(pb, tokens=pb["tokens"][:, :8]),
+                               max_len=16)
+        assert tuple(pparams["blocks"]["layer0"]["ssm"]["conv_b"][
+            "scale"].shape) == (pcfg.ssm_expand * pcfg.d_model
+                                + 2 * pcfg.ssm_state,)
+        return
+    wrap = (lambda f: f) if quant else jax.jit
+    jl, jc = wrap(functools.partial(jM.forward_prefill, cfg, run,
+                                    max_len=16))(
+        params, dict(jb, tokens=jb["tokens"][:, :8]))
+    pl, pc = pM.forward_prefill(pcfg, prun, pparams,
+                                dict(pb, tokens=pb["tokens"][:, :8]),
+                                max_len=16)
+    tol = TOL16 if quant else TOL32
+    families._close(pl, jl, tol)
+    decode = wrap(functools.partial(jM.forward_decode, cfg, run))
+    for i in (8, 9):
+        jl, jc = decode(params, {"tokens": jb["tokens"][:, i:i + 1]}, jc)
+        pl, pc = pM.forward_decode(pcfg, prun, pparams,
+                                   {"tokens": pb["tokens"][:, i:i + 1]}, pc)
+        families._close(pl, jl, tol)
 
 
 # ---------------------------------------------------------------------------
@@ -412,3 +456,43 @@ def test_decode_matches_teacher_forcing(arch):
         errs.append(float((logits[:, 0] - full[:, i]).abs().max()))
     assert max(errs) < 5e-3, errs
     assert caches["cache_len"].tolist() == [16, 16]
+
+
+@pytest.mark.parametrize("prompt,departs", [(4, False), (8, True)])
+def test_window_decode_after_long_prompt_departs_equally(prompt, departs):
+    """A reference fault the port keeps (ROADMAP Queue 3): after a prompt
+    longer than the sliding window, `_pad_prefill_caches` keeps the last
+    `window` keys at ring slots 0..window-1, and decode then writes
+    position p at slot p % window, over a key still in the window. Reduced
+    llama3-8b, window 6, fp32, 6 decode steps against each package's own
+    `forward_train`: a 4-token prompt decodes exactly, an 8-token one
+    departs (errors of ~0.05-0.3), and the port's errors equal the
+    reference's."""
+    cfg, run, params, pcfg, prun, pparams, toks = _setup(
+        "llama3-8b", "float32", sliding_window=6)
+    n = prompt + 6
+    jfull, _ = jM.forward_train(cfg, run, params,
+                                {"tokens": jnp.asarray(toks[:, :n])})
+    pfull, _ = pM.forward_train(pcfg, prun, pparams,
+                                {"tokens": torch.tensor(toks[:, :n])})
+    _close(pfull, jfull, TOL32)
+    _, jc = jM.forward_prefill(cfg, run, params,
+                               {"tokens": jnp.asarray(toks[:, :prompt])},
+                               max_len=24)
+    _, pc = pM.forward_prefill(pcfg, prun, pparams,
+                               {"tokens": torch.tensor(toks[:, :prompt])},
+                               max_len=24)
+    jerr, perr = [], []
+    for i in range(prompt, n):
+        tok = toks[:, i:i + 1]
+        jl, jc = jM.forward_decode(cfg, run, params,
+                                   {"tokens": jnp.asarray(tok)}, jc)
+        pl, pc = pM.forward_decode(pcfg, prun, pparams,
+                                   {"tokens": torch.tensor(tok)}, pc)
+        jerr.append(float(np.abs(_np(jl[:, 0]) - _np(jfull[:, i])).max()))
+        perr.append(float(np.abs(_np(pl[:, 0]) - _np(pfull[:, i])).max()))
+    np.testing.assert_allclose(perr, jerr, atol=TOL32, rtol=0)
+    if departs:
+        assert max(jerr) > 0.05 and max(perr) > 0.05, (jerr, perr)
+    else:
+        assert max(jerr) < 1e-4 and max(perr) < 1e-4, (jerr, perr)

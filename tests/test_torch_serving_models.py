@@ -44,9 +44,10 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _serve(build, request_cls, ecfg_cls, carry=None):
+def _serve(build, request_cls, ecfg_cls, carry=None, arch="qwen3-4b",
+           requests=REQUESTS):
     kw = {} if carry is None else {"device": "cpu"}
-    eng = build("qwen3-4b", policy="none", profiles=PROFILES,
+    eng = build(arch, policy="none", profiles=PROFILES,
                 ecfg=ecfg_cls(max_batch=2, max_running=3), **kw)
     if carry is not None:
         eng.params = convert.tree_from_numpy(
@@ -71,7 +72,7 @@ def _serve(build, request_cls, ecfg_cls, carry=None):
 
     eng._prefill, eng._fwd_prefill, eng._fwd_decode = a, p, d
     rng = np.random.RandomState(0)
-    for rid, tenant, plen, max_new in REQUESTS:
+    for rid, tenant, plen, max_new in requests:
         eng.submit(request_cls(rid=rid, tenant=tenant, max_new=max_new,
                                prompt=rng.randint(0, eng.cfg.vocab_size,
                                                   plen)))
