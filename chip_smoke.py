@@ -229,6 +229,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                dequantized per block): a decode step after a 4 x 512
                prefill against bf16's under the reference's law, max |d|
                / std(bf16 logits) < 0.1, and the step's time in both.
+ 17. train  -- the training path (`repro_torch.train`, `launch/train.py`):
+               (a) `ssd_scan.ops.ssd_intra_chunk` on the card runs the
+               kernel inside its autograd Function (one launch, the
+               Function's grad_fn on every output); its gradients of x,
+               dA, B and C at phase 8's serving shape == autograd through
+               the plain version within 1e-5 x each one's max |g|, and
+               forward + backward timed both ways; (b) reduced fp32
+               qwen3-4b, mamba2-1.3b and olmoe-1b-7b (capacity_factor =
+               n_experts), 4 x 64 seeded tokens and labels, remat on: one
+               `build_loss_fn` gradient on the card against the port on
+               the CPU from the same params, loss within 1e-5 (relative)
+               and every grad leaf within 1e-4 of its max |g| (TF32 off),
+               ssd launches == 2 x layers (forward + recompute); with
+               `pallas_flash` the gradient raises NotImplementedError, as
+               the reference; (c) full-width mamba2-1.3b (48 layers,
+               d_model 2048, vocab 50280; bf16 params, AdamW with fp32
+               moments, remat): 3 `train_step`s of 16 x 4096 seeded random
+               tokens and labels (train_4k's length; its batch of 256 cut
+               to 16 for one card) in 8 microbatches of 2: losses and
+               grad norms finite, params finite, ssd launches == (48
+               forward + 40 to rebuild the block boundaries of each group
+               of `_scan_group(48)` = 6 but its last + 48 per-block
+               recomputes) x 8 x 3; seconds per step, tokens/s, peak
+               memory; (d) `python -m repro_torch.launch.train --arch
+               qwen3-4b --smoke` in one process with deterministic
+               algorithms (CUBLAS_WORKSPACE_CONFIG=:4096:8): 10 steps, a
+               resume to 14 and an unbroken 14 whose step-14 checkpoints
+               are bit-equal, and 30 steps whose loss falls by more than
+               0.1.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -2749,6 +2778,287 @@ def engine_moe_phase(torch, np, card, flash, dev="cuda"):
                 engine_moe_prefill_shapes=[list(s) for s in shapes])
 
 
+# ---- 17. training ----------------------------------------------------------
+TRAIN_ARCH = "mamba2-1.3b"
+# train_4k's global batch of 256 (a 16-way data axis) cut to 16 for one card;
+# its sequence length and microbatches (8 of 2) as the registry gives them
+TRAIN_B, TRAIN_STEPS = 16, 3
+TRAIN_PARITY = ("qwen3-4b", "mamba2-1.3b", "olmoe-1b-7b")
+TRAIN_PARITY_B, TRAIN_PARITY_S = 4, 64
+TRAIN_LOSS_TOL = 1e-5      # relative, card vs CPU (fp32, TF32 off)
+TRAIN_GRAD_TOL = 1e-4      # x each leaf's max |g|, card vs CPU
+SSD_GRAD_TOL = 1e-5        # x each input's max |g|: Function vs plain
+TRAIN_LAUNCHER = ["--arch", "qwen3-4b", "--smoke"]
+TRAIN_DROP = 0.1           # tests/test_train_ckpt_ft.py::test_loss_decreases
+TRAIN_DETERMINISTIC = """
+import sys
+import torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.launch import train
+for argv in %r:
+    sys.argv = ["train"] + argv
+    print("RUN " + " ".join(argv), flush=True)
+    train.main()
+"""
+
+
+def ssd_grad_phase(torch, card):
+    """Phase 17 (a): the gradients of `ops.ssd_intra_chunk` on the card
+    (the kernel inside its autograd Function) against autograd through
+    the plain version, at the serving shape."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    sv = SSD_SERVE
+    B_, S, nh, hd, ds, Q = (sv[k] for k in ("B", "S", "nh", "hd", "ds", "Q"))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, B, C = draw(B_, S, nh, hd) * .5, draw(B_, S, ds) * .5, \
+        draw(B_, S, ds) * .5
+    dt = torch.rand((B_, S, nh), generator=gen, device="cuda") * .1 + .02
+    A = -(torch.rand((nh,), generator=gen, device="cuda") * .5 + .1)
+    args = ops.chunk_inputs(x, dt, A, B, C, Q)
+    cot = [draw(*o.shape) for o in ssd_intra_chunk_ref(*args)]
+
+    def grads(fn):
+        ins = [a.detach().requires_grad_() for a in args]
+        outs = fn(*ins)
+        return outs, torch.autograd.grad(outs, ins, cot)
+
+    before = ssd_intra_chunk.launches
+    outs, got = grads(ops.ssd_intra_chunk)
+    if ssd_intra_chunk.launches != before + 1 or not all(
+            "SsdIntraChunk" in type(o.grad_fn).__name__ for o in outs):
+        raise AssertionError("ops.ssd_intra_chunk on the card did not run "
+                             "the kernel inside SsdIntraChunk")
+    _, want = grads(ssd_intra_chunk_ref)
+    err, share = 0.0, 0.0
+    for name, g, w in zip(("x", "dA", "B", "C"), got, want):
+        d = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        err, share = max(err, d), max(share, d / (SSD_GRAD_TOL * scale))
+        if not bool(torch.isfinite(g).all()) or d > SSD_GRAD_TOL * scale:
+            raise AssertionError(f"ssd Function's d{name} != autograd "
+                                 f"through the plain version: max |err| "
+                                 f"{d:.3g}, max |g| {scale:.3g}")
+    ms = time_events(torch, lambda: grads(ops.ssd_intra_chunk), 5, 1)
+    plain_ms = time_events(torch, lambda: grads(ssd_intra_chunk_ref), 5, 1)
+    torch.cuda.synchronize()
+    log(f"[train] (a) ssd Function at B={B_} S={S} nh={nh} hd={hd} ds={ds} "
+        f"Q={Q}: gradients of x, dA, B, C == autograd through the plain "
+        f"version (max |err| {err:.3g}, {share:.3g} of {SSD_GRAD_TOL} x max "
+        f"|g|); forward + backward {ms:.3f} ms (kernel forward, plain "
+        f"backward) against {plain_ms:.3f} ms all plain [{card}]")
+    del x, B, C, dt, args, cot, outs, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, tol_share=share, ms=ms, plain_ms=plain_ms,
+                shape=dict(sv, dtype="float32"))
+
+
+def train_grad_phase(torch, np, card):
+    """Phase 17 (b): one `build_loss_fn` gradient of reduced fp32
+    qwen3-4b, mamba2 and olmoe on the card against the port on the CPU
+    from the same params (remat on); `flash_attention` refuses it."""
+    import dataclasses
+    from repro_torch.configs import get_model, reduced_model
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.models import model
+    from repro_torch.models.params import subtree, tree_items, tree_map
+    from repro_torch.train import step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in TRAIN_PARITY:
+        cfg = reduced_model(get_model(arch))
+        if cfg.is_moe:
+            cfg = dataclasses.replace(cfg,
+                                      capacity_factor=float(cfg.n_experts))
+        shape = ShapeConfig("t", TRAIN_PARITY_S, TRAIN_PARITY_B, "train")
+        run = RunConfig(model=cfg, shape=shape, remat=True, attn_block_q=16,
+                        attn_block_k=16)
+        params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu", dtype_override=torch.float32)
+        rng = np.random.RandomState(3)
+        batch = {k: torch.tensor(rng.randint(0, cfg.vocab_size, (
+            TRAIN_PARITY_B, TRAIN_PARITY_S)), dtype=torch.int32)
+            for k in ("tokens", "labels")}
+        grad_fn = step.value_and_grad(step.build_loss_fn(cfg, run))
+        (want_loss, _), want = grad_fn(params, batch)
+        ssd_intra_chunk.launches = 0
+        (loss, _), got = grad_fn(tree_map(lambda t: t.cuda(), params),
+                                 {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launches = ssd_intra_chunk.launches
+        want_launches = 2 * cfg.n_layers if cfg.family == "ssm" else 0
+        if launches != want_launches:
+            raise AssertionError(f"{arch}: {launches} ssd launches, want "
+                                 f"{want_launches} (forward + recompute)")
+        rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        worst = 0.0
+        for path, w in tree_items(want):
+            scale = max(float(w.abs().max()), 1e-30)
+            worst = max(worst, float((subtree(got, path).cpu() - w).abs()
+                                     .max()) / scale)
+        log(f"[train] (b) reduced {arch} fp32 ({cfg.n_layers} layers, B="
+            f"{TRAIN_PARITY_B}, S={TRAIN_PARITY_S}, remat): loss on the card "
+            f"{float(loss):.6f} vs CPU {float(want_loss):.6f} (rel "
+            f"{rel:.3g}, tol {TRAIN_LOSS_TOL}); worst grad leaf {worst:.3g} "
+            f"of its max |g| (tol {TRAIN_GRAD_TOL}); ssd launches "
+            f"{launches} [{card}]")
+        if not (rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"{arch}: the card's loss or grads depart "
+                                 "from the CPU's")
+        out[arch] = dict(loss_rel=rel, grad_rel=worst, ssd_launches=launches)
+        if arch == "qwen3-4b":
+            flash_run = dataclasses.replace(run, attention_impl="pallas_flash")
+            try:
+                step.value_and_grad(step.build_loss_fn(cfg, flash_run))(
+                    tree_map(lambda t: t.cuda(), params),
+                    {k: v.cuda() for k, v in batch.items()})
+            except NotImplementedError:
+                log("[train] (b) pallas_flash under a gradient: "
+                    "NotImplementedError, as the reference")
+            else:
+                raise AssertionError("flash_attention took a gradient")
+    return out
+
+
+def train_run_config():
+    """train_4k's run config for TRAIN_ARCH (remat, its microbatches), the
+    global batch cut to TRAIN_B."""
+    import dataclasses
+    from repro_torch.configs import get_run_config
+    run = get_run_config(TRAIN_ARCH, "train_4k")
+    return dataclasses.replace(run, shape=dataclasses.replace(
+        run.shape, global_batch=TRAIN_B))
+
+
+def train_phase(torch, np, card):
+    """Phase 17 (c): full-width mamba2-1.3b, bf16 params, AdamW with fp32
+    moments, remat, TRAIN_STEPS steps of train_4k's run config with its
+    batch cut to TRAIN_B, through `build_train_step`; the ssd launches
+    counted over the steps."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.models import lm, model
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.step import build_train_step
+    torch.cuda.reset_peak_memory_stats()
+    run = train_run_config()
+    cfg, seq, micro = run.model, run.shape.seq_len, run.microbatches
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda")
+    opt_cfg = opt_mod.OptConfig()
+    state = opt_mod.init(params, opt_cfg)
+    train_step = build_train_step(cfg, run, opt_cfg)
+    torch.cuda.synchronize()
+    log(f"[train] (c) {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {count_params(params) / 1e9:.3f} B params in bf16, "
+        f"AdamW fp32 moments, on the card in {time.perf_counter() - t0:.2f} "
+        f"s")
+    rng = np.random.RandomState(17)
+    batches = [{k: torch.tensor(rng.randint(0, cfg.vocab_size, (
+        TRAIN_B, seq)), dtype=torch.int32, device="cuda")
+        for k in ("tokens", "labels")} for _ in range(TRAIN_STEPS)]
+    ssd_intra_chunk.launches = 0
+    secs, losses, norms = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, metrics = train_step(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = ssd_intra_chunk.launches
+    R = cfg.n_layers
+    G = lm._scan_group(R)
+    # per microbatch: the forward, the recompute of each group up to its
+    # last block (the block boundaries), then each block's own recompute
+    per_micro = R + (R - R // G) + R
+    if launches != per_micro * micro * TRAIN_STEPS:
+        raise AssertionError(f"ssd launches {launches} != {per_micro} x "
+                             f"{micro} microbatches x {TRAIN_STEPS} steps")
+    if not all(np.isfinite(losses + norms)) or min(norms) <= 0:
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)):
+        raise AssertionError("non-finite params after the steps")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_B * seq
+    warm = secs[1:] or secs
+    tps = tokens * len(warm) / sum(warm)
+    log(f"[train] (c) {TRAIN_STEPS} steps of {TRAIN_B} x {seq} tokens "
+        f"({micro} microbatches of {TRAIN_B // micro}): loss "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; grad norm "
+        f"{', '.join(f'{v:.4f}' for v in norms)}; s per step "
+        f"{', '.join(f'{v:.2f}' for v in secs)} (first cold); {tps:.0f} "
+        f"tokens/s after the first; ssd launches {launches} == {per_micro} "
+        f"({R} forward + {R - R // G} group recompute + {R} block "
+        f"recompute; groups of {G}) x {micro} x {TRAIN_STEPS}; peak "
+        f"memory {peak / 2**30:.2f} GiB [{card}]")
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, layers=R, batch=TRAIN_B, seq=seq,
+                microbatches=micro, steps=TRAIN_STEPS, losses=losses,
+                grad_norms=norms, s_per_step=secs, tokens_per_s=tps,
+                peak_bytes=peak, ssd_launches=launches,
+                ssd_per_microbatch=per_micro)
+
+
+def train_launcher_phase(card):
+    """Phase 17 (d): `python -m repro_torch.launch.train` on the card in a
+    deterministic process (CUBLAS_WORKSPACE_CONFIG, deterministic
+    algorithms): reduced qwen3-4b 10 steps, resumed to 14, against an
+    unbroken 14, the two step-14 checkpoints bit-equal; then 30 steps with
+    the loss falling by more than TRAIN_DROP."""
+    import os
+    import tempfile
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        a, d = os.path.join(tmp, "a"), os.path.join(tmp, "d")
+        runs = [TRAIN_LAUNCHER + ["--steps", "10", "--ckpt-dir", a],
+                TRAIN_LAUNCHER + ["--steps", "14", "--ckpt-dir", a],
+                TRAIN_LAUNCHER + ["--steps", "14", "--ckpt-dir", d],
+                TRAIN_LAUNCHER + ["--steps", "30"]]
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT / "src")] + [p for p in [
+                           os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", TRAIN_DETERMINISTIC % (runs,)], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train launcher exited {proc.returncode}:"
+                                 f"\n{proc.stdout}\n{proc.stderr[-4000:]}")
+        for ln in proc.stdout.splitlines():
+            log(f"[train] (d) | {ln}")
+        name = os.path.join("step_000000014", "shard_0.npz")
+        with np.load(os.path.join(a, name)) as fa, \
+                np.load(os.path.join(d, name)) as fd:
+            if sorted(fa.files) != sorted(fd.files):
+                raise AssertionError("resumed and unbroken checkpoints hold "
+                                     "other leaves")
+            differ = [k for k in fa.files
+                      if not np.array_equal(fa[k], fd[k])]
+            n_leaves = len(fa.files)
+        if differ:
+            raise AssertionError(f"resumed run != unbroken run at step 14: "
+                                 f"{differ[:5]}")
+    last = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("first loss")][-1].split()
+    first, final = float(last[2]), float(last[5])
+    if not final < first - TRAIN_DROP:
+        raise AssertionError(f"30 steps: loss {first} -> {final}")
+    log(f"[train] (d) launcher, deterministic: 10 steps + resume to 14 == "
+        f"unbroken 14 bit for bit ({n_leaves} leaves); 30 steps: loss "
+        f"{first:.4f} -> {final:.4f}; {wall:.1f} s in one process [{card}]")
+    return dict(wall_s=wall, restart_leaves=n_leaves, first_loss=first,
+                last_loss=final)
+
 
 def main():
     t_start = time.perf_counter()
@@ -2937,6 +3247,18 @@ def main():
                               "mixtral_match": MIXTRAL_LAYERS * 2}
     ssd["jamba"] = dict(launches=families["jamba"]["ssd_launches"],
                         per_prefill=families["jamba"]["ssd_launches"])
+
+    # ---- 17. training ------------------------------------------------------
+    t0 = time.perf_counter()
+    ssd_backward = ssd_grad_phase(torch, card)
+    grads = train_grad_phase(torch, np, card)
+    trained = train_phase(torch, np, card)
+    launched = train_launcher_phase(card)
+    ssd["train"] = dict(trained, backward=ssd_backward, parity=grads,
+                        launcher=launched)
+    for entry in (flash, flash_fp32):
+        entry["grad"] = "refused (NotImplementedError), as the reference"
+    log(f"[train] phase 17 took {time.perf_counter() - t0:.1f} s")
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")

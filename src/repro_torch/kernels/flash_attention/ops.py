@@ -8,10 +8,17 @@ tiling (`kernel.check_tiling`). The CPU route takes any head dim; on the
 card both kernels take a head dim in `kernel.HEAD_DIMS` (32, 64, 96, 128)
 and raise ValueError on any other; both also need 16-byte aligned
 addresses and strides (`kernel.tma_strides`).
+
+Neither route takes a gradient: the reference cannot differentiate its
+Pallas kernel either, and trains with `attention_impl="xla_blocked"`.
+Under a gradient `flash_attention` raises rather than let a training
+graph lose its attention gradient.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
     check_tiling, flash_attention_bhsd)
@@ -23,7 +30,12 @@ def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     """q: (B, S, H, dh); k, v: (B, S, KV, dh) -> (B, S, H, dh).
 
     Axes 1 and 2 are swapped as views; the kernel reads the strided layout
-    and writes its output in q's layout, so no copy is made."""
+    and writes its output in q's layout, so no copy is made. Raises
+    NotImplementedError when grad is enabled and q, k or v requires it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward (nor has the reference's "
+            "Pallas kernel): train with attention_impl=\"xla_blocked\"")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         check_tiling(q.shape[1], k.shape[1], block_q, block_k)

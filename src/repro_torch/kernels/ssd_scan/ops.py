@@ -3,6 +3,13 @@
 A CPU tensor goes to the plain PyTorch version (`ref.py`); any other
 device goes to the CUDA kernel (`kernel.py`), which launches or raises.
 Nothing falls back from one to the other.
+
+The kernel is reached through ctypes, so its outputs carry no `grad_fn`
+of their own. On the card `ssd_intra_chunk` therefore runs it inside
+`SsdIntraChunk`, an autograd Function whose forward is the kernel and
+whose backward differentiates the plain version on the saved inputs.
+The reference has no backward kernel either: it trains through XLA's
+gradient of the plain math.
 """
 from __future__ import annotations
 
@@ -12,12 +19,37 @@ from repro_torch.kernels.ssd_scan import kernel as _kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
 
+class SsdIntraChunk(torch.autograd.Function):
+    """`forward(x, dA, Bm, Cm)` (the CUDA kernel on the card) with the
+    gradient of `ssd_intra_chunk_ref`: the backward recomputes the plain
+    version on the saved inputs and differentiates it against the incoming
+    gradients of (y_intra, S_chunk, decay). The forward is an argument so
+    that a CPU test can pass the plain version and check the backward."""
+
+    @staticmethod
+    def forward(ctx, forward, x, dA, Bm, Cm):
+        ctx.save_for_backward(x, dA, Bm, Cm)
+        return forward(x, dA, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, g_y, g_s, g_decay):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            outs = ssd_intra_chunk_ref(*ins)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wrt,
+                                             (g_y, g_s, g_decay)))
+        return (None,) + tuple(next(grads) if n else None for n in need)
+
+
 def ssd_intra_chunk(x, dA, Bm, Cm):
     """x: (B, nc, Q, nh, hd); dA: (B, nc, Q, nh); Bm/Cm: (B, nc, Q, ds),
     float32. Returns y_intra, S_chunk, decay (see `ref.py`)."""
     if x.device.type == "cpu":
         return ssd_intra_chunk_ref(x, dA, Bm, Cm)
-    return _kernel.ssd_intra_chunk(x, dA, Bm, Cm)
+    return SsdIntraChunk.apply(_kernel.ssd_intra_chunk, x, dA, Bm, Cm)
 
 
 def chunk_inputs(x, dt, A, B, C, chunk: int):

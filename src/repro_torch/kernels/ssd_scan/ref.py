@@ -39,7 +39,10 @@ def ssd_intra_chunk_ref(x, dA, Bm, Cm):
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (B, nc, Q, Q, nh)
     idx = torch.arange(Q, device=x.device)
     causal = (idx[None, :] <= idx[:, None])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(diff), 0.0)
+    # masked before the exp: above the diagonal cs[q] - cs[s] > 0 can
+    # overflow, and a gradient through where(causal, exp(diff), 0) would
+    # be 0 * inf there
+    L = torch.exp(torch.where(causal, diff, float("-inf")))
     G = torch.einsum("bcqd,bcsd->bcqs", Cm, Bm)            # (B, nc, Q, Q)
     M = G[..., None] * L                                   # (B, nc, Q, Q, nh)
     y = torch.einsum("bcqsh,bcshp->bcqhp", M, x)

@@ -26,15 +26,22 @@ the caches IN PLACE and returns the same tensors with a new
 ``cache_len``.
 
 The MoE FFNs' aux losses are summed per layer as `lb_loss + 1e-3 *
-z_loss` (`forward_train` returns the sum). The reference's `remat` only
-moves memory in its backward pass and changes no value; the port runs no
-backward pass and ignores it.
+z_loss` (`forward_train` returns the sum). `forward_train` is what the
+train step differentiates (`train/step.py`). With `run.remat` and grad
+enabled, a training forward is rematerialized as the reference's
+`jax.checkpoint` does it, with `torch.utils.checkpoint` (non-reentrant):
+each layer of a multi-layer block (jamba's 8) on its own, and each block,
+nested in groups of `_scan_group(R)` blocks for deep stacks (only the
+group boundaries stay alive; one group's block boundaries are rebuilt at
+a time). Remat changes no value; prefill and decode never use it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -50,6 +57,17 @@ from repro_torch.models.quant import dequant_tree
 # ---------------------------------------------------------------------------
 # Block pattern
 # ---------------------------------------------------------------------------
+
+def _scan_group(R: int) -> int:
+    """Largest divisor of R in [4, 16] closest to sqrt(R); 1 if R < 24."""
+    if R < 24:
+        return 1
+    target = R ** 0.5
+    divs = [g for g in range(4, 17) if R % g == 0]
+    if not divs:
+        return 1
+    return min(divs, key=lambda g: abs(g - target))
+
 
 def block_pattern(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...],
                                              Tuple[str, ...]]:
@@ -261,78 +279,132 @@ def _check_stacked(blocks, R: int):
                          f"the {R} stacked repeats")
 
 
+_checkpoint = functools.partial(torch.utils.checkpoint.checkpoint,
+                                use_reentrant=False, preserve_rng_state=False)
+
+
+def _layer(cfg, run, kind, ix, r, x, lp, positions, *, decode, caches,
+           enc_out, build_cache):
+    """One layer of block r (params `lp`; `ix` its index among the block's
+    layers of its kind), the reference's layer body. Returns (x, its aux
+    loss or None when it has none, its k/v, SSM state and cross k/v, each
+    None unless building caches)."""
+    kv = st = ckv = None
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        if decode:
+            o = _self_attention_decode(
+                cfg, run, lp, h, caches["k"][r, ix], caches["v"][r, ix],
+                caches["cache_len"])
+        else:
+            o, kv = _self_attention_full(cfg, run, lp, h, positions,
+                                         build_cache)
+        x = x + o
+        if cfg.is_enc_dec:
+            h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+            ckv = ((caches["cross_k"][r, ix], caches["cross_v"][r, ix])
+                   if decode else None)
+            o, ckv = _cross_attention(cfg, run, lp, h, enc_out=enc_out,
+                                      cross_kv=ckv)
+            x = x + o
+    else:
+        if decode:
+            st = m2.SSMState(h=caches["ssm_h"][r, ix],
+                             conv=caches["ssm_conv"][r, ix])
+            o, new = m2.mamba2_decode(lp["ssm"], cfg, h, st)
+            st.h.copy_(new.h)
+            st.conv.copy_(new.conv)
+        else:
+            o, st = m2.mamba2_forward(lp["ssm"], cfg, h)
+        x = x + o
+    a = None
+    if "norm2" in lp:
+        h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        y, ffn_aux = _ffn(cfg, run, lp, h)
+        x = x + y
+        if ffn_aux is not None:
+            a = ffn_aux["lb_loss"] + 1e-3 * ffn_aux["z_loss"]
+    if not build_cache:
+        kv = st = ckv = None
+    return x, a, kv, st, ckv
+
+
+def _apply_block(cfg, run, bp, r, x, positions, *, decode, caches,
+                 enc_out, build_cache, layer_remat):
+    """Block r (params `bp`) of P layers, each through `_checkpoint` when
+    `layer_remat`. Returns (x, the block's aux sum, its k/v, SSM states
+    and cross k/v when building caches)."""
+    P, kinds, _ = block_pattern(cfg)
+    block_kv, block_ssm, block_cross = [], [], []
+    aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(P):
+        ix = [i for i in range(P) if kinds[i] == kinds[j]].index(j)
+        layer = functools.partial(
+            _layer, cfg, run, kinds[j], ix, r, decode=decode, caches=caches,
+            enc_out=enc_out, build_cache=build_cache)
+        lp = bp[f"layer{j}"]
+        x, a_j, kv, st, ckv = (_checkpoint(layer, x, lp, positions)
+                               if layer_remat else layer(x, lp, positions))
+        if a_j is not None:
+            aux_b = aux_b + a_j
+        for out, o in ((block_kv, kv), (block_ssm, st), (block_cross, ckv)):
+            if o is not None:
+                out.append(o)
+    return x, aux_b, (block_kv, block_ssm, block_cross)
+
+
 def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
              mode: str = "full", caches=None, enc_out=None,
              build_cache=False):
     """x: (B,S,d) embedded inputs. Returns (hidden, new_caches, aux_losses).
     In decode mode the k/v caches and the SSM state are updated in place
-    (the state is cast to the cache's dtype); the cross k/v are read."""
-    P, kinds, _ = block_pattern(cfg)
+    (the state is cast to the cache's dtype); the cross k/v are read.
+    A training forward (full mode, no caches, grad enabled) with
+    `run.remat` is rematerialized per layer (P > 1) and per block (R > 1,
+    nested in groups of `_scan_group(R)`)."""
+    P, _, _ = block_pattern(cfg)
     R = cfg.n_layers // P
-    attn_ix = [j for j in range(P) if kinds[j] == "attn"]
-    ssm_ix = [j for j in range(P) if kinds[j] == "ssm"]
     blocks = params["blocks"]
     if R > 1:
         _check_stacked(blocks, R)
     cache_len = caches["cache_len"] if caches else None
     decode = mode == "decode"
-    kv_out, ssm_out, cross_out = [], [], []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(R):
-        bp = tree_map(lambda a, _r=r: a[_r], blocks) if R > 1 else blocks
+    remat = (run.remat and mode == "full" and not build_cache
+             and torch.is_grad_enabled())
+    kw = dict(decode=decode, caches=caches, enc_out=enc_out,
+              build_cache=build_cache, layer_remat=remat and P > 1)
+
+    def block(x, aux, r):
+        bp = tree_map(lambda a: a[r], blocks) if R > 1 else blocks
         if run.quantize_weights:
             bp = dequant_tree(bp)       # this block's bf16 weights only
-        block_kv, block_ssm, block_cross = [], [], []
-        aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
-        for j in range(P):
-            lp = bp[f"layer{j}"]
-            h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-            if kinds[j] == "attn":
-                a = attn_ix.index(j)
-                if decode:
-                    o = _self_attention_decode(
-                        cfg, run, lp, h, caches["k"][r, a],
-                        caches["v"][r, a], cache_len)
-                else:
-                    o, kv = _self_attention_full(
-                        cfg, run, lp, h, positions, build_cache)
-                    if build_cache:
-                        block_kv.append(kv)
-                x = x + o
-                if cfg.is_enc_dec:
-                    h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-                    ckv = ((caches["cross_k"][r, a], caches["cross_v"][r, a])
-                           if decode else None)
-                    o, ckv = _cross_attention(cfg, run, lp, h,
-                                              enc_out=enc_out, cross_kv=ckv)
-                    x = x + o
-                    if build_cache:
-                        block_cross.append(ckv)
+        x, aux_b, outs = _apply_block(cfg, run, bp, r, x, positions, **kw)
+        return x, aux + aux_b, outs
+
+    def remat_block(x, aux, r):
+        x, aux, _ = block(x, aux, r)
+        return x, aux
+
+    def remat_group(x, aux, g, size):
+        for r in range(g * size, (g + 1) * size):
+            x, aux = _checkpoint(remat_block, x, aux, r)
+        return x, aux
+
+    kv_out, ssm_out, cross_out = [], [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if remat and R > 1:
+        size = _scan_group(R)
+        for g in range(R // size):
+            if size > 1:
+                x, aux = _checkpoint(remat_group, x, aux, g, size)
             else:
-                m = ssm_ix.index(j)
-                if decode:
-                    st = m2.SSMState(h=caches["ssm_h"][r, m],
-                                     conv=caches["ssm_conv"][r, m])
-                    o, new = m2.mamba2_decode(lp["ssm"], cfg, h, st)
-                    st.h.copy_(new.h)
-                    st.conv.copy_(new.conv)
-                else:
-                    o, st = m2.mamba2_forward(lp["ssm"], cfg, h)
-                    if build_cache:
-                        block_ssm.append(st)
-                x = x + o
-            if "norm2" in lp:
-                h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-                y, ffn_aux = _ffn(cfg, run, lp, h)
-                x = x + y
-                if ffn_aux is not None:
-                    aux_b = (aux_b + ffn_aux["lb_loss"]
-                             + 1e-3 * ffn_aux["z_loss"])
-        aux = aux + aux_b
-        for out, block_out in ((kv_out, block_kv), (ssm_out, block_ssm),
-                               (cross_out, block_cross)):
-            if block_out:
-                out.append(block_out)
+                x, aux = _checkpoint(remat_block, x, aux, g)
+    else:
+        for r in range(R):
+            x, aux, outs = block(x, aux, r)
+            for out, block_out in zip((kv_out, ssm_out, cross_out), outs):
+                if block_out:
+                    out.append(block_out)
 
     if decode:
         new_caches = dict(caches, cache_len=cache_len + 1)
@@ -414,7 +486,7 @@ def _encoder_out(cfg, run, params, batch):
 
 
 def forward_train(cfg, run, params, batch):
-    """Forward only. Returns (logits, aux_loss)."""
+    """Returns (logits, aux_loss); differentiable (`train/step.py`)."""
     enc_out = _encoder_out(cfg, run, params, batch)
     x = embed_inputs(cfg, params, batch)
     h, _, aux = backbone(cfg, run, params, x, _positions(x), mode="full",

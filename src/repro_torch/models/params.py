@@ -52,6 +52,22 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_items(tree, prefix: Tuple[str, ...] = ()) -> list:
+    """(path, leaf) pairs, the path a tuple of dict keys, in the order
+    `tree_map` visits the leaves (JAX's flatten order for dicts)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def subtree(tree, path: Tuple[str, ...]):
+    """The part of `tree` at `path` (a path of `tree_items`)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _fan_in(p: Param) -> int:
     # convention: last axis is the output dim for 2D+ weights
     if len(p.shape) <= 1:

@@ -4,7 +4,8 @@
   module out of `sys.modules` (checked in a fresh interpreter), and
   `chip_smoke.py` and the `scripts/torch_*.py` import neither.
   The walk loads the serving slice (`serving/`, `launch/serve.py`,
-  `sim/profiles.py`).
+  `sim/profiles.py`) and the training slice (`train/`, `data/`,
+  `checkpoint/`, `distributed/`, `models/losses.py`, `launch/train.py`).
 * `run_mix`, the serving engine, the contention oracle and the
   launcher's `build_engine` with the default device run on CUDA or
   raise; they never carry on on the CPU. The fused round follows the device of its
@@ -29,11 +30,17 @@ from repro_torch.sim.workloads import app_matrix  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# the serving slice: every one of these must be loaded by the walk
+# the serving and training slices: every one of these must be loaded by
+# the walk
 SERVING = ("repro_torch.sim.profiles", "repro_torch.serving.engine",
            "repro_torch.serving.placement", "repro_torch.serving.oracle",
            "repro_torch.serving.stream", "repro_torch.serving.metrics",
-           "repro_torch.launch.serve")
+           "repro_torch.launch.serve", "repro_torch.models.losses",
+           "repro_torch.train.optimizer", "repro_torch.train.step",
+           "repro_torch.train.loop", "repro_torch.data.pipeline",
+           "repro_torch.checkpoint.checkpointer",
+           "repro_torch.distributed.fault_tolerance",
+           "repro_torch.launch.train")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -57,14 +64,14 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 72     # every module was loaded
+    assert int(proc.stdout.split()[-1]) >= 84     # every module was loaded
 
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "scripts/torch_step_profile.py",
     "scripts/torch_serve_profile.py", "scripts/torch_ssd_variants.py",
     "scripts/torch_paged_variants.py", "scripts/torch_trace_rate.py",
-    "scripts/torch_grid_time.py"] + sorted(
+    "scripts/torch_grid_time.py", "scripts/torch_train_profile.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "src/repro_torch").rglob("*.py")))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
