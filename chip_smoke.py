@@ -258,6 +258,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                resume to 14 and an unbroken 14 whose step-14 checkpoints
                are bit-equal, and 30 steps whose loss falls by more than
                0.1.
+ 18. distributed -- the distributed layer (`distributed/sharding.py`,
+               `launch/mesh.py`, `roofline/`, `run_grid(devices=N)`):
+               (a) `runner._shard_devices` patched to 4 x cuda:0: `sweep`
+               of mask and gpu-mmu x (3DS, BLK), (MUM, RED), (3DS, MUM) at
+               120 cycles with solo baselines, sharded over the 4 (the
+               group's 14 rows padded to 16, shards of 4) == the same
+               sweep unsharded, every stat float-hex, fused_tlb launches
+               == shards x 120 rounds; unpatched, `run_grid(devices=2)`
+               on one card raises ValueError naming devices=2; (b)
+               full-width mamba2-1.3b (bf16, 48 layers, train_4k's 4096
+               tokens), one microbatch of 2 x 4096, AdamW, fsdp: the plain
+               `build_train_step` (results kept on the host), then the
+               same step from the same seed with DTensor params and
+               moments on a (1, 1) `DeviceMesh` over a one-rank NCCL
+               group (`make_host_mesh`, `Sharder.param_sharding`) and
+               `Sharder.constrain`: loss and every updated param
+               bit-equal, ssd launches == 136 in each (as phase 17 (c)
+               per microbatch), the SSD kernel on each rank's local shard;
+               (c) qwen3-4b bf16 `forward_prefill` of 4 x 2048 with the
+               (1, 1) mesh's DTensor params and `constrain`: logits
+               bit-equal to phase 6's, 36 flash launches on the wgmma
+               route; (d) the step's FLOPs from `roofline.counter` beside
+               `roofline.analysis.model_flops` (printed, no limit).
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -946,7 +969,8 @@ def finite(torch, x, what):
 
 def serve_phase(torch, np, card, arch=SERVE_ARCH, tag="serve"):
     """Phases 6 and 9: prefill + greedy decode of `arch` at full width,
-    bf16."""
+    bf16. Returns the first prefill's logits on the host (phase 18 (c)
+    holds its sharded prefill to them)."""
     from repro_torch.models.params import count_params
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -967,6 +991,8 @@ def serve_phase(torch, np, card, arch=SERVE_ARCH, tag="serve"):
         finite(torch, logits, "prefill")
         if logits.shape != (SERVE_B, 1, cfg.padded_vocab):
             raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+        if not times[1:]:
+            first = logits.cpu()
     t0 = time.perf_counter()
     for _ in range(SERVE_NEW):
         tok = logits[:, -1].argmax(dim=-1, keepdim=True).int()
@@ -985,6 +1011,7 @@ def serve_phase(torch, np, card, arch=SERVE_ARCH, tag="serve"):
         f"{peak / 2**30:.2f} GiB [{card}]")
     del params, caches, logits
     torch.cuda.empty_cache()
+    return first
 
 
 def match_phase(torch, np, card, arch=SERVE_ARCH, tag="match", cfg=None):
@@ -3060,6 +3087,255 @@ def train_launcher_phase(card):
                 last_loss=final)
 
 
+# ---- phase 18: the distributed layer ----------------------------------------
+
+DIST_DESIGNS = ("mask", "gpu-mmu")
+DIST_MIXES = [("3DS", "BLK"), ("MUM", "RED"), ("3DS", "MUM")]
+DIST_CYCLES = 120          # tests/test_sharded_grid.py's sweep
+DIST_SHARDS = 4
+DIST_TRAIN_B = 2           # one microbatch of train_4k's 2 x 4096
+
+
+def sharded_grid_phase(torch, np, card, fused_tlb_round, dev="cuda"):
+    """Phase 18 (a): a sweep's rows sharded over DIST_SHARDS devices, all
+    of them `dev` (`runner._shard_devices` patched: one card), against
+    the same sweep on one device, float-hex; fused_tlb launches == the
+    shards' rounds; unpatched, devices=2 on one card raises."""
+    from repro_torch.sim import runner
+    kw = dict(cycles=DIST_CYCLES, solo_baselines=True, grid=True, device=dev)
+    single = runner.sweep(list(DIST_DESIGNS), DIST_MIXES, **kw)
+    shard_devices, run_rows = runner._shard_devices, runner._run_rows
+    shards = []
+
+    def counted(cfg, dp, mixes):
+        shards.append((cfg.device, len(mixes)))
+        return run_rows(cfg, dp, mixes)
+
+    runner._shard_devices = lambda device, n: [torch.device(dev)] * n
+    runner._run_rows = counted
+    fused_tlb_round.launches = 0
+    t0 = time.perf_counter()
+    try:
+        sharded = runner.sweep(list(DIST_DESIGNS), DIST_MIXES,
+                               devices=DIST_SHARDS, **kw)
+    finally:
+        runner._shard_devices, runner._run_rows = shard_devices, run_rows
+    secs = time.perf_counter() - t0
+    launches = fused_tlb_round.launches
+    rounds = len(shards) * DIST_CYCLES      # one fused round a cycle
+    if launches != rounds or len(shards) % DIST_SHARDS:
+        raise AssertionError(f"fused_tlb launched {launches} times for "
+                             f"{len(shards)} shards x {DIST_CYCLES} rounds")
+    stats = 0
+    for name in DIST_DESIGNS:
+        a, b = single[name], sharded[name]
+        if len(a) != len(b) or a.solo_ipc != b.solo_ipc:
+            raise AssertionError(f"{name}: sharded sweep's solo baselines "
+                                 "differ")
+        for xa, xb in zip(a, b):
+            for k in xa.raw:
+                ha = [float(v).hex() for v in np.atleast_1d(xa.raw[k]).ravel()]
+                hb = [float(v).hex() for v in np.atleast_1d(xb.raw[k]).ravel()]
+                if ha != hb:
+                    raise AssertionError(f"{name}:{k} sharded {hb} != {ha}")
+                stats += len(ha)
+    visible = torch.cuda.device_count() if dev == "cuda" else 1
+    refusal = f"not checked: {visible} devices visible"
+    if visible < 2:
+        try:
+            runner.run_grid(list(DIST_DESIGNS), DIST_MIXES,
+                            cycles=DIST_CYCLES, devices=2, device=dev)
+        except ValueError as e:
+            if "devices=2" not in str(e):
+                raise AssertionError(f"devices=2 raised {e!r}") from e
+            refusal = str(e)
+        else:
+            raise AssertionError("run_grid(devices=2) ran on one device")
+    log(f"[dist] (a) sweep of {len(DIST_DESIGNS)} designs x "
+        f"{len(DIST_MIXES)} mixes at {DIST_CYCLES} cycles with solo "
+        f"baselines, rows over {DIST_SHARDS} shards on {dev} (shards of "
+        f"{sorted({n for _, n in shards})} rows): {stats} stats == the "
+        f"unsharded sweep float-hex; fused_tlb launches {launches} == "
+        f"{len(shards)} shards x {DIST_CYCLES} rounds; {secs:.2f} s; "
+        f"unpatched: {refusal!r} [{card}]")
+    return dict(designs=list(DIST_DESIGNS), mixes=len(DIST_MIXES),
+                cycles=DIST_CYCLES, shards=len(shards),
+                rows_per_shard=sorted({n for _, n in shards}),
+                launches=launches, stats_equal=stats, s=secs)
+
+
+def _host_tree(tree):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.params import tree_items
+    return {"/".join(path): (leaf.full_tensor() if isinstance(leaf, DTensor)
+                             else leaf).cpu()
+            for path, leaf in tree_items(tree)}
+
+
+def _distributed(specs, params, mesh, sharder):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda p, a: distribute_tensor(a, mesh,
+                                                   sharder.param_sharding(p)),
+                    specs, params)
+
+
+def sharded_train_phase(torch, np, card):
+    """Phase 18 (b) and (d): one full-width mamba2-1.3b step of one
+    microbatch, plain and then on a (1, 1) mesh of DTensors, bit-equal;
+    the sharded step counted by `roofline.counter`."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import Sharder
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline.counter import count_step
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.step import build_train_step
+    run = train_run_config()
+    run = dataclasses.replace(run, microbatches=1, fsdp=True,
+                              shape=dataclasses.replace(
+                                  run.shape, global_batch=DIST_TRAIN_B))
+    cfg, seq = run.model, run.shape.seq_len
+    opt_cfg = opt_mod.OptConfig()
+    rng = np.random.RandomState(18)
+    batch = {k: torch.tensor(rng.randint(0, cfg.vocab_size, (
+        DIST_TRAIN_B, seq)), dtype=torch.int32, device="cuda")
+        for k in ("tokens", "labels")}
+
+    def fresh():
+        return model.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg,
+            device="cuda")
+
+    R = cfg.n_layers
+    per_micro = R + (R - R // lm._scan_group(R)) + R
+    params = fresh()
+    state = opt_mod.init(params, opt_cfg)
+    ssd_intra_chunk.launches = 0
+    t0 = time.perf_counter()
+    params, state, metrics = build_train_step(cfg, run, opt_cfg)(
+        params, state, batch)
+    torch.cuda.synchronize()
+    plain_s, plain_launches = time.perf_counter() - t0, \
+        ssd_intra_chunk.launches
+    want_loss = metrics["loss"].cpu()
+    want = _host_tree(params)
+    del params, state, metrics
+    torch.cuda.empty_cache()
+
+    mesh = make_host_mesh()
+    try:
+        sharder = Sharder(mesh, run)
+        params = _distributed(model.param_specs(cfg), fresh(), mesh, sharder)
+        state = opt_mod.init(params, opt_cfg)
+        step = build_train_step(cfg, run, opt_cfg, sharder.constrain)
+        torch.cuda.synchronize()
+        ssd_intra_chunk.launches = 0
+        t0 = time.perf_counter()
+        (params, state, metrics), counts = count_step(step, params, state,
+                                                      batch)
+        torch.cuda.synchronize()
+        sharded_s, launches = time.perf_counter() - t0, \
+            ssd_intra_chunk.launches
+        kinds = {type(leaf).__name__ for leaf in tree_leaves(params)}
+        loss = metrics["loss"]
+        loss = (loss.full_tensor() if isinstance(loss, DTensor)
+                else loss).cpu()
+        got = _host_tree(params)
+        moments_sharded = all(
+            isinstance(m, DTensor) for m in tree_leaves(state["m"]))
+    finally:
+        dist.destroy_process_group()
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    if launches != per_micro or plain_launches != per_micro:
+        raise AssertionError(f"ssd launches: plain {plain_launches}, sharded "
+                             f"{launches}, want {per_micro}")
+    if not torch.equal(loss, want_loss):
+        raise AssertionError(f"sharded loss {float(loss)!r} != plain "
+                             f"{float(want_loss)!r}")
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ:
+        worst = max(float((got[k].float() - want[k].float()).abs().max())
+                    / max(float(want[k].float().abs().max()), 1e-30)
+                    for k in differ)
+        raise AssertionError(f"{len(differ)} updated leaves differ from the "
+                             f"plain step (worst {worst:.3g} of max |p|): "
+                             f"{differ[:6]}")
+    if kinds != {"DTensor"} or not moments_sharded:
+        raise AssertionError(f"params were {kinds}, moments DTensor: "
+                             f"{moments_sharded}")
+    shape = dataclasses.replace(run.shape, global_batch=DIST_TRAIN_B)
+    mflops = model_flops(cfg, shape)
+    log(f"[dist] (b) {cfg.name} one microbatch of {DIST_TRAIN_B} x {seq}, "
+        f"AdamW, fsdp, on a (1, 1) DeviceMesh over a one-rank NCCL group: "
+        f"loss {float(want_loss):.6f} and {len(want)} updated leaves "
+        f"bit-equal to the plain step; ssd launches {launches} == "
+        f"{per_micro} (plain {plain_launches}); step {plain_s:.2f} s plain, "
+        f"{sharded_s:.2f} s sharded (with the counter on) [{card}]")
+    log(f"[dist] (d) the sharded step's counter: dot_flops "
+        f"{counts['dot_flops']:.6g} (aten products; the SSD kernel counts "
+        f"0) beside model_flops {mflops:.6g} (6 x active params x tokens); "
+        f"ratio {counts['dot_flops'] / mflops:.4f}; collective bytes "
+        f"{counts['coll_bytes']:.6g} {counts['coll_by_op']} on one rank")
+    return dict(arch=cfg.name, batch=DIST_TRAIN_B, seq=seq, mesh=[1, 1],
+                loss=float(want_loss), leaves=len(want), launches=launches,
+                plain_launches=plain_launches, plain_s=plain_s,
+                sharded_s=sharded_s, dot_flops=counts["dot_flops"],
+                model_flops=mflops, coll_bytes=counts["coll_bytes"],
+                coll_by_op=counts["coll_by_op"])
+
+
+def sharded_prefill_phase(torch, np, card, flash_attention_bhsd, want):
+    """Phase 18 (c): qwen3-4b bf16 prefill on a (1, 1) mesh of DTensors
+    through `Sharder.constrain`, logits bit-equal to phase 6's (`want`,
+    on the host), flash on the wgmma route once a layer."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import Sharder
+    from repro_torch.launch.mesh import make_host_mesh
+    model, cfg, run, params = model_setup(torch, None)
+    tokens = serve_tokens(torch, np, cfg)
+    mesh = make_host_mesh()
+    try:
+        sharder = Sharder(mesh, run)
+        params = _distributed(model.param_specs(cfg), params, mesh, sharder)
+        zero_counts(flash_attention_bhsd)
+        t0 = time.perf_counter()
+        logits, caches = model.forward_prefill(
+            cfg, run, params, {"tokens": tokens},
+            max_len=SERVE_S + SERVE_NEW, constrain=sharder.constrain)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        was_dtensor = isinstance(logits, DTensor)
+        got = (logits.full_tensor() if was_dtensor else logits).cpu()
+    finally:
+        dist.destroy_process_group()
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    routed(flash_attention_bhsd, "wgmma", cfg.n_layers,
+           f"a sharded bf16 prefill of {cfg.n_layers} layers")
+    if not was_dtensor or not torch.equal(got, want):
+        raise AssertionError(
+            f"sharded prefill logits (DTensor: {was_dtensor}) != phase 6's: "
+            f"max |d| {float((got.float() - want.float()).abs().max())}")
+    log(f"[dist] (c) {cfg.name} bf16 prefill of {SERVE_B} x {SERVE_S} on a "
+        f"(1, 1) DeviceMesh: logits bit-equal to phase 6's; flash launches "
+        f"{flash_attention_bhsd.launches} == {cfg.n_layers} layers on the "
+        f"wgmma route, each on its local shard; {secs * 1e3:.1f} ms "
+        f"[{card}]")
+    return dict(arch=cfg.name, batch=SERVE_B, seq=SERVE_S, mesh=[1, 1],
+                launches=flash_attention_bhsd.launches, s=secs)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3188,7 +3464,7 @@ def main():
     flash, flash_fp32 = flash_phase(torch, np, flash_attention_bhsd, card)
     n_attn = get_model(SERVE_ARCH).n_layers
     zero_counts(flash_attention_bhsd)
-    serve_phase(torch, np, card)
+    serve_logits = serve_phase(torch, np, card)
     flash["launches"] = flash_attention_bhsd.route_launches["wgmma"]
     routed(flash_attention_bhsd, "wgmma", n_attn * 2,
            f"2 bf16 prefills of {n_attn} layers")
@@ -3260,6 +3536,14 @@ def main():
         entry["grad"] = "refused (NotImplementedError), as the reference"
     log(f"[train] phase 17 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 18. the distributed layer ----------------------------------------
+    t0 = time.perf_counter()
+    dist_grid = sharded_grid_phase(torch, np, card, fused_tlb_round)
+    ssd["distributed"] = sharded_train_phase(torch, np, card)
+    flash["distributed"] = sharded_prefill_phase(
+        torch, np, card, flash_attention_bhsd, serve_logits)
+    log(f"[dist] phase 18 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")
     l2 = timings[0]
@@ -3273,6 +3557,7 @@ def main():
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
         "library_ms": None, "shapes": timings, **grid, "churn": churn,
+        "distributed": dist_grid,
         "serving": dict(overload, engine_launches=engine[
             "engine_fused_tlb_launches"], engine_grid_calls=engine[
             "engine_grid_calls"])},

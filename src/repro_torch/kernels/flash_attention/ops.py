@@ -13,13 +13,20 @@ Neither route takes a gradient: the reference cannot differentiate its
 Pallas kernel either, and trains with `attention_impl="xla_blocked"`.
 Under a gradient `flash_attention` raises rather than let a training
 graph lose its attention gradient.
+
+DTensor q/k/v (a sharded model, `distributed/sharding.py`) run the kernel
+on each rank's local shards (`kernels/_dtensor.run_local`): batch and
+heads may be sharded, q's heads and k/v's over the same mesh dims (GQA
+groups stay whole); a shard along the sequence or head dim raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels._dtensor import is_dtensor, run_local
 from repro_torch.kernels.flash_attention.kernel import (
     check_tiling, flash_attention_bhsd)
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -36,6 +43,12 @@ def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
         raise NotImplementedError(
             "flash_attention has no backward (nor has the reference's "
             "Pallas kernel): train with attention_impl=\"xla_blocked\"")
+    if is_dtensor(q, k, v):
+        dims = {"batch": 0, "heads": 2}
+        return run_local(
+            functools.partial(flash_attention, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k),
+            "flash_attention", (q, k, v), (dims,) * 3, (dims,))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         check_tiling(q.shape[1], k.shape[1], block_q, block_k)

@@ -10,11 +10,20 @@ of their own. On the card `ssd_intra_chunk` therefore runs it inside
 whose backward differentiates the plain version on the saved inputs.
 The reference has no backward kernel either: it trains through XLA's
 gradient of the plain math.
+
+DTensor inputs (a sharded model, `distributed/sharding.py`) run on each
+rank's local shards (`kernels/_dtensor.run_local`), the kernel inside
+`SsdIntraChunk` on the card as above: `ssd_scan` whole (the inter-chunk
+recurrence too: batch and heads are independent through it), sharded by
+batch and heads (B and C whole over the head shards), and
+`ssd_intra_chunk` by batch, chunks and heads; a shard along the
+sequence, a chunk's rows or the head or state width raises.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._dtensor import is_dtensor, run_local
 from repro_torch.kernels.ssd_scan import kernel as _kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
@@ -47,6 +56,12 @@ class SsdIntraChunk(torch.autograd.Function):
 def ssd_intra_chunk(x, dA, Bm, Cm):
     """x: (B, nc, Q, nh, hd); dA: (B, nc, Q, nh); Bm/Cm: (B, nc, Q, ds),
     float32. Returns y_intra, S_chunk, decay (see `ref.py`)."""
+    if is_dtensor(x, dA, Bm, Cm):
+        bc = {"batch": 0, "chunks": 1}
+        heads = dict(bc, heads=3)
+        return run_local(ssd_intra_chunk, "ssd_intra_chunk", (x, dA, Bm, Cm),
+                         (heads, heads, bc, bc),
+                         (heads, dict(bc, heads=2), dict(bc, heads=2)))
     if x.device.type == "cpu":
         return ssd_intra_chunk_ref(x, dA, Bm, Cm)
     return SsdIntraChunk.apply(_kernel.ssd_intra_chunk, x, dA, Bm, Cm)
@@ -76,6 +91,17 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, h0=None):
     reference (`src/repro/kernels/ssd_scan/ops.py`). The intra-chunk part
     runs in `ssd_intra_chunk`, the inter-chunk recurrence is a loop over
     chunks."""
+    if is_dtensor(x, dt, A, B, C, h0):
+        def local(x, dt, A, B, C, *h0):
+            return ssd_scan(x, dt, A, B, C, chunk=chunk,
+                            h0=h0[0] if h0 else None)
+
+        heads, state = {"batch": 0, "heads": 2}, {"batch": 0, "heads": 1}
+        args = (x, dt, A, B, C) + (() if h0 is None else (h0,))
+        dims = (heads, heads, {"heads": 0}, {"batch": 0}, {"batch": 0},
+                state)
+        return run_local(local, "ssd_scan", args, dims[:len(args)],
+                         (heads, state))
     b, S, nh, hd = x.shape
     if S % chunk:
         raise ValueError(f"ssd_scan: S={S} is not a multiple of "

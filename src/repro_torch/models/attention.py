@@ -16,8 +16,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import whole_dims
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, head_rmsnorm_params
+from repro_torch.models.layers import apply_rope, dot, head_rmsnorm_params
 from repro_torch.models.params import Param
 
 NEG_INF = -1e30
@@ -58,9 +59,9 @@ def project_qkv(params, x, *, n_heads, n_kv, dh, positions, rope_theta,
                 qk_norm=False, use_rope=True):
     """x: (B, S, d) -> q (B,S,H,dh), k,v (B,S,KV,dh)."""
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, dh)
-    k = (x @ params["wk"]).reshape(B, S, n_kv, dh)
-    v = (x @ params["wv"]).reshape(B, S, n_kv, dh)
+    q = dot(x, params["wq"]).reshape(B, S, n_heads, dh)
+    k = dot(x, params["wk"]).reshape(B, S, n_kv, dh)
+    v = dot(x, params["wv"]).reshape(B, S, n_kv, dh)
     if qk_norm:
         q = _head_norm(params["q_norm"], q)
         k = _head_norm(params["k_norm"], k)
@@ -142,8 +143,11 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     Sk, KV = k.shape[1], k.shape[2]
     if KV != H:
         G = H // KV
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
+        # a DTensor sharded along the kv heads is made whole along them
+        # first: DTensor cannot view the repeat's (KV, G) pair back into
+        # a sharded dim
+        k = whole_dims(k, 2).repeat_interleave(G, dim=2)
+        v = whole_dims(v, 2).repeat_interleave(G, dim=2)
     block_q = min(block_q, Sq)
     block_k = min(block_k, Sk)
     if Sq % block_q or Sk % block_k:

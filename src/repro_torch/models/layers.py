@@ -63,13 +63,24 @@ def mlp_params(d: int, d_ff: int):
     }
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the operands' promoted dtype, as JAX promotes an einsum's
+    mixed operands (torch refuses them): a bf16 weight under float32
+    activations is cast at its use, so its gradient comes back in bf16.
+    Operands of one dtype run as `x @ w`."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
     """silu of the gate in float32, cast to x's dtype, times the up
     projection."""
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
+    g = dot(x, params["w_gate"])
+    u = dot(x, params["w_up"])
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["w_down"]
+    return dot(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +93,11 @@ def embed_params(vocab: int, d: int):
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens.long()]
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    """Logits (..., vocab): x against the (vocab, d) table."""
+    return dot(x, params["table"].T)
 
 
 def lm_head_params(vocab: int, d: int):

@@ -34,17 +34,32 @@ each layer of a multi-layer block (jamba's 8) on its own, and each block,
 nested in groups of `_scan_group(R)` blocks for deep stacks (only the
 group boundaries stay alive; one group's block boundaries are rebuilt at
 a time). Remat changes no value; prefill and decode never use it.
+
+Sharding hooks: every entry point takes the reference's `constrain(x,
+axes)` at the reference's sites (the activations' logical axes, e.g.
+("batch", None, "embed") after each residual branch; q and k by heads;
+the decode caches by kvseq; the logits by vocab). The default is a no-op,
+so a call without it computes exactly what it did before;
+`distributed.sharding.Sharder.constrain` redistributes DTensor
+activations over a `DeviceMesh`.
+
+Dtypes follow the reference's promotion: a product of mixed operands runs
+in their promoted dtype (`layers.dot`, each weight cast at its use, so
+its gradient comes back in the param's dtype). So float32 encoder frames
+run the encoder in float32 over bf16 weights, and the decoder from its
+first cross attention, as in the reference.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import plain_as_replicated
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
@@ -52,6 +67,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import (Param, TensorSpec, stack_params,
                                        tree_leaves, tree_map)
 from repro_torch.models.quant import dequant_tree
+
+Constrain = Callable[[torch.Tensor, Tuple[Optional[str], ...]], torch.Tensor]
+
+
+def _noop_constrain(x, axes):
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -182,21 +203,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _self_attention_full(cfg, run, lp, x, positions, build_cache):
+def _self_attention_full(cfg, run, lp, x, positions, constrain, build_cache):
     q, k, v = attn_mod.project_qkv(
         lp["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         dh=cfg.head_dim, positions=positions, rope_theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    # the reference leaves v to GSPMD's propagation; a DTensor's view of
+    # the projection may shard it along dh, which the flash kernel's
+    # local run refuses, so v gets k's layout here
+    v = constrain(v, ("batch", None, "kv_heads", None))
     o = attn_mod.attention(
         q, k, v, impl=run.attention_impl, causal=True,
         window=cfg.sliding_window, block_q=run.attn_block_q,
         block_k=run.attn_block_k)
     o = o.reshape(o.shape[0], o.shape[1], cfg.n_heads * cfg.head_dim)
-    out = o @ lp["attn"]["wo"]
-    return out, ((k, v) if build_cache else None)
+    out = L.dot(o, lp["attn"]["wo"])
+    return (constrain(out, ("batch", None, "embed")),
+            ((k, v) if build_cache else None))
 
 
-def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len):
+def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len,
+                           constrain):
     """x: (B,1,d); cache_k/v: (B,S,KV,dh), written in place at this token's
     slot: a ring slot under a sliding window no wider than the cache, else
     min(cache_len, S-1) (the last slot is overwritten once full)."""
@@ -212,6 +241,8 @@ def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len):
     bidx = torch.arange(B, device=x.device)
     cache_k[bidx, slot.long()] = k[:, 0].to(cache_k.dtype)
     cache_v[bidx, slot.long()] = v[:, 0].to(cache_v.dtype)
+    cache_k = constrain(cache_k, ("batch", "kvseq", "kv_heads", None))
+    cache_v = constrain(cache_v, ("batch", "kvseq", "kv_heads", None))
     if ring:
         # ring: everything currently stored is in-window and valid
         n_valid = (cache_len + 1).clamp_max(S)
@@ -220,20 +251,23 @@ def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len):
         o = attn_mod.decode_attention_dense(
             q, cache_k, cache_v, cache_len + 1, window=cfg.sliding_window)
     o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return o @ lp["attn"]["wo"]
+    return constrain(L.dot(o, lp["attn"]["wo"]), ("batch", None, "embed"))
 
 
-def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None):
+def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None,
+                     constrain=_noop_constrain):
     """Cross attention over the encoder's frames: k/v projected from
     `enc_out` in full mode, read from the cache (`cross_kv`) in decode.
     Naive (all frames at once) when S == 1 or S * enc_len <= 2**20, else
-    q-blocked with the whole k/v per block, as the reference."""
+    q-blocked with the whole k/v per block, as the reference. Float32
+    encoder output over bf16 weights gives float32 k/v, attention and
+    output, as the reference's promotion."""
     B, S, _ = x.shape
     dh, KV = cfg.head_dim, cfg.n_kv_heads
-    q = (x @ lp["cross"]["wq"]).reshape(B, S, cfg.n_heads, dh)
+    q = L.dot(x, lp["cross"]["wq"]).reshape(B, S, cfg.n_heads, dh)
     if cross_kv is None:
-        k = (enc_out @ lp["cross"]["wk"]).reshape(B, -1, KV, dh)
-        v = (enc_out @ lp["cross"]["wv"]).reshape(B, -1, KV, dh)
+        k = L.dot(enc_out, lp["cross"]["wk"]).reshape(B, -1, KV, dh)
+        v = L.dot(enc_out, lp["cross"]["wv"]).reshape(B, -1, KV, dh)
     else:
         k, v = cross_kv
     if S == 1 or S * k.shape[1] <= 1 << 20:
@@ -245,15 +279,20 @@ def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None):
         o = attn_mod.blocked_attention(q, k, v, causal=False, block_q=bq,
                                        block_k=k.shape[1])
     o = o.reshape(B, S, cfg.n_heads * dh)
-    return o @ lp["cross"]["wo"], (k, v)
+    out = L.dot(o, lp["cross"]["wo"])
+    return constrain(out, ("batch", None, "embed")), (k, v)
 
 
-def _ffn(cfg, run, lp, x):
+def _ffn(cfg, run, lp, x, constrain):
     """Dense SwiGLU or MoE FFN. Returns (y, aux dict or None)."""
+    aux = None
     if "moe" in lp:
-        return moe_mod.moe_apply(lp["moe"], x, top_k=cfg.top_k,
-                                 capacity_factor=cfg.capacity_factor)
-    return L.mlp(lp["mlp"], x), None
+        y, aux = moe_mod.moe_apply(lp["moe"], x, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   constrain=constrain)
+    else:
+        y = L.mlp(lp["mlp"], x)
+    return constrain(y, ("batch", None, "embed")), aux
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +323,7 @@ _checkpoint = functools.partial(torch.utils.checkpoint.checkpoint,
 
 
 def _layer(cfg, run, kind, ix, r, x, lp, positions, *, decode, caches,
-           enc_out, build_cache):
+           enc_out, build_cache, constrain):
     """One layer of block r (params `lp`; `ix` its index among the block's
     layers of its kind), the reference's layer body. Returns (x, its aux
     loss or None when it has none, its k/v, SSM state and cross k/v, each
@@ -295,17 +334,17 @@ def _layer(cfg, run, kind, ix, r, x, lp, positions, *, decode, caches,
         if decode:
             o = _self_attention_decode(
                 cfg, run, lp, h, caches["k"][r, ix], caches["v"][r, ix],
-                caches["cache_len"])
+                caches["cache_len"], constrain)
         else:
             o, kv = _self_attention_full(cfg, run, lp, h, positions,
-                                         build_cache)
+                                         constrain, build_cache)
         x = x + o
         if cfg.is_enc_dec:
             h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
             ckv = ((caches["cross_k"][r, ix], caches["cross_v"][r, ix])
                    if decode else None)
             o, ckv = _cross_attention(cfg, run, lp, h, enc_out=enc_out,
-                                      cross_kv=ckv)
+                                      cross_kv=ckv, constrain=constrain)
             x = x + o
     else:
         if decode:
@@ -315,12 +354,13 @@ def _layer(cfg, run, kind, ix, r, x, lp, positions, *, decode, caches,
             st.h.copy_(new.h)
             st.conv.copy_(new.conv)
         else:
-            o, st = m2.mamba2_forward(lp["ssm"], cfg, h)
-        x = x + o
+            o, st = m2.mamba2_forward(lp["ssm"], cfg, h,
+                                      constrain=constrain)
+        x = x + constrain(o, ("batch", None, "embed"))
     a = None
     if "norm2" in lp:
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        y, ffn_aux = _ffn(cfg, run, lp, h)
+        y, ffn_aux = _ffn(cfg, run, lp, h, constrain)
         x = x + y
         if ffn_aux is not None:
             a = ffn_aux["lb_loss"] + 1e-3 * ffn_aux["z_loss"]
@@ -330,7 +370,7 @@ def _layer(cfg, run, kind, ix, r, x, lp, positions, *, decode, caches,
 
 
 def _apply_block(cfg, run, bp, r, x, positions, *, decode, caches,
-                 enc_out, build_cache, layer_remat):
+                 enc_out, build_cache, layer_remat, constrain):
     """Block r (params `bp`) of P layers, each through `_checkpoint` when
     `layer_remat`. Returns (x, the block's aux sum, its k/v, SSM states
     and cross k/v when building caches)."""
@@ -341,7 +381,7 @@ def _apply_block(cfg, run, bp, r, x, positions, *, decode, caches,
         ix = [i for i in range(P) if kinds[i] == kinds[j]].index(j)
         layer = functools.partial(
             _layer, cfg, run, kinds[j], ix, r, decode=decode, caches=caches,
-            enc_out=enc_out, build_cache=build_cache)
+            enc_out=enc_out, build_cache=build_cache, constrain=constrain)
         lp = bp[f"layer{j}"]
         x, a_j, kv, st, ckv = (_checkpoint(layer, x, lp, positions)
                                if layer_remat else layer(x, lp, positions))
@@ -355,7 +395,7 @@ def _apply_block(cfg, run, bp, r, x, positions, *, decode, caches,
 
 def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
              mode: str = "full", caches=None, enc_out=None,
-             build_cache=False):
+             constrain: Constrain = _noop_constrain, build_cache=False):
     """x: (B,S,d) embedded inputs. Returns (hidden, new_caches, aux_losses).
     In decode mode the k/v caches and the SSM state are updated in place
     (the state is cast to the cache's dtype); the cross k/v are read.
@@ -372,7 +412,8 @@ def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
     remat = (run.remat and mode == "full" and not build_cache
              and torch.is_grad_enabled())
     kw = dict(decode=decode, caches=caches, enc_out=enc_out,
-              build_cache=build_cache, layer_remat=remat and P > 1)
+              build_cache=build_cache, layer_remat=remat and P > 1,
+              constrain=constrain)
 
     def block(x, aux, r):
         bp = tree_map(lambda a: a[r], blocks) if R > 1 else blocks
@@ -430,10 +471,14 @@ def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
 # Encoder (whisper)
 # ---------------------------------------------------------------------------
 
-def encode(cfg: ModelConfig, run: RunConfig, params, frames):
+def encode(cfg: ModelConfig, run: RunConfig, params, frames,
+           constrain: Constrain = _noop_constrain):
     """frames: (B, enc_len, d) precomputed frame embeddings (the frontend is
-    a stub, as in the reference), in the params' dtype. Bidirectional
-    attention: naive when enc_len <= 2048, else `run.attention_impl`."""
+    a stub, as in the reference). The encoder computes in the frames'
+    dtype promoted with the weights' (float32 frames over bf16 weights run
+    in float32). Bidirectional attention: naive when enc_len <= 2048, else
+    `run.attention_impl`. `constrain` is taken for the reference's
+    signature, which constrains nothing inside the encoder."""
     enc = params["encoder"]
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
     impl = "naive" if frames.shape[1] <= 2048 else run.attention_impl
@@ -447,7 +492,7 @@ def encode(cfg: ModelConfig, run: RunConfig, params, frames):
             lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             dh=cfg.head_dim, positions=positions, rope_theta=cfg.rope_theta)
         o = attn_mod.attention(q, k, v, impl=impl, causal=False)
-        x = x + o.reshape(*o.shape[:2], -1) @ lp["attn"]["wo"]
+        x = x + L.dot(o.reshape(*o.shape[:2], -1), lp["attn"]["wo"])
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
         x = x + L.mlp(lp["mlp"], h)
     return L.rmsnorm(enc["norm"], x, cfg.norm_eps)
@@ -457,51 +502,57 @@ def encode(cfg: ModelConfig, run: RunConfig, params, frames):
 # Top-level entries
 # ---------------------------------------------------------------------------
 
-def embed_inputs(cfg, params, batch):
+def embed_inputs(cfg, params, batch, constrain: Constrain = _noop_constrain):
     """Assemble (B,S,d) input embeddings from the batch dict: the patch
     embeddings (projected) ahead of the token embeddings when the config
     has patches and the batch carries them."""
     x = L.embed(params["embed"], batch["tokens"])
     if cfg.n_patches and "patch_embeds" in batch:
-        pe, w = attn_mod._common(batch["patch_embeds"],
-                                 params["patch_proj"]["w"])
-        x = torch.cat([(pe @ w).to(x.dtype), x], dim=1)
-    return x
+        pe = L.dot(batch["patch_embeds"], params["patch_proj"]["w"])
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+    return constrain(x, ("batch", None, "embed"))
 
 
-def logits_fn(cfg, params, hidden):
+def logits_fn(cfg, params, hidden, constrain: Constrain = _noop_constrain):
     """(B,S,d) -> (B,S,padded_vocab) logits."""
     table = params["embed"]["table"] if cfg.tie_embeddings \
         else params["lm_head"]["table"]
-    return hidden @ table.T
+    return constrain(L.unembed({"table": table}, hidden),
+                     ("batch", None, "vocab"))
 
 
 def _positions(x):
     return torch.arange(x.shape[1], device=x.device)[None, :]
 
 
-def _encoder_out(cfg, run, params, batch):
-    return encode(cfg, run, params, batch["frames"]) if cfg.is_enc_dec \
-        else None
+def _encoder_out(cfg, run, params, batch, constrain):
+    return encode(cfg, run, params, batch["frames"], constrain) \
+        if cfg.is_enc_dec else None
 
 
-def forward_train(cfg, run, params, batch):
+def forward_train(cfg, run, params, batch,
+                  constrain: Constrain = _noop_constrain):
     """Returns (logits, aux_loss); differentiable (`train/step.py`)."""
-    enc_out = _encoder_out(cfg, run, params, batch)
-    x = embed_inputs(cfg, params, batch)
-    h, _, aux = backbone(cfg, run, params, x, _positions(x), mode="full",
-                         enc_out=enc_out)
-    return logits_fn(cfg, params, h), aux
+    with plain_as_replicated(params):
+        enc_out = _encoder_out(cfg, run, params, batch, constrain)
+        x = embed_inputs(cfg, params, batch, constrain)
+        h, _, aux = backbone(cfg, run, params, x, _positions(x),
+                             mode="full", enc_out=enc_out,
+                             constrain=constrain)
+        return logits_fn(cfg, params, h, constrain), aux
 
 
-def forward_prefill(cfg, run, params, batch, max_len):
+def forward_prefill(cfg, run, params, batch, max_len,
+                    constrain: Constrain = _noop_constrain):
     """Returns (last-token logits, caches ready for decode)."""
-    enc_out = _encoder_out(cfg, run, params, batch)
-    x = embed_inputs(cfg, params, batch)
-    h, caches, _ = backbone(cfg, run, params, x, _positions(x), mode="full",
-                            enc_out=enc_out, build_cache=True)
-    logits = logits_fn(cfg, params, h[:, -1:])
-    return logits, _pad_prefill_caches(cfg, caches, max_len)
+    with plain_as_replicated(params):
+        enc_out = _encoder_out(cfg, run, params, batch, constrain)
+        x = embed_inputs(cfg, params, batch, constrain)
+        h, caches, _ = backbone(cfg, run, params, x, _positions(x),
+                                mode="full", enc_out=enc_out,
+                                constrain=constrain, build_cache=True)
+        logits = logits_fn(cfg, params, h[:, -1:], constrain)
+        return logits, _pad_prefill_caches(cfg, caches, max_len)
 
 
 def _pad_prefill_caches(cfg, caches, max_len):
@@ -526,12 +577,15 @@ def _pad_prefill_caches(cfg, caches, max_len):
     return out
 
 
-def forward_decode(cfg, run, params, token_batch, caches, enc_out=None):
+def forward_decode(cfg, run, params, token_batch, caches, enc_out=None,
+                   constrain: Constrain = _noop_constrain):
     """token_batch: {'tokens': (B,1)}; returns (logits (B,1,V), caches).
     The caches' k/v and SSM state are updated in place; the returned dict
     holds the same tensors and cache_len + 1. `enc_out` is taken for the
     reference's signature: decode reads the cross k/v from the caches."""
-    x = embed_inputs(cfg, params, token_batch)
-    h, new_caches, _ = backbone(cfg, run, params, x, None, mode="decode",
-                                caches=caches, enc_out=enc_out)
-    return logits_fn(cfg, params, h), new_caches
+    with plain_as_replicated(params):
+        x = embed_inputs(cfg, params, token_batch, constrain)
+        h, new_caches, _ = backbone(cfg, run, params, x, None,
+                                    mode="decode", caches=caches,
+                                    enc_out=enc_out, constrain=constrain)
+        return logits_fn(cfg, params, h, constrain), new_caches

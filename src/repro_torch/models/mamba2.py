@@ -88,19 +88,30 @@ def _segsum(x):
     return diff.masked_fill(~(ii[:, None] >= ii[None, :]), float("-inf"))
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
+def _noop_constrain(x, axes):
+    return x
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, constrain=None):
     """Chunked SSD scan.
 
     x: (b, S, nh, hd)   dt: (b, S, nh)   A: (nh,) negative
     B, C: (b, S, ds)    returns y: (b, S, nh, hd), h_final (b, nh, hd, ds)
 
     The chunk is the largest divisor of S that is at most `chunk`, as in
-    the reference, so a chunk may hold any number of rows from 1 up."""
+    the reference, so a chunk may hold any number of rows from 1 up.
+    `constrain` keeps x, dt and y sharded by heads, where the reference
+    constrains the chunked x * dt, dt * A and y_intra (its (Q, Q) decays
+    must never replicate across the model axis)."""
+    cb = constrain if constrain is not None else _noop_constrain
     S = x.shape[1]
     chunk = min(chunk, S)
     while S % chunk:
         chunk -= 1
-    return ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0)
+    x = cb(x, ("batch", None, "heads", None))
+    dt = cb(dt, ("batch", None, "heads"))
+    y, h = ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0)
+    return cb(y, ("batch", None, "heads", None)), h
 
 
 def _gated_norm_out(params, y, z, dtype):
@@ -111,10 +122,11 @@ def _gated_norm_out(params, y, z, dtype):
     return y.to(dtype) @ params["out_proj"]
 
 
-def mamba2_forward(params, cfg, x, state: SSMState = None):
+def mamba2_forward(params, cfg, x, state: SSMState = None, constrain=None):
     """Full block (prefill/train). x: (B,S,d). Returns (y, new_state)."""
+    cb = constrain if constrain is not None else _noop_constrain
     d_in, nh, _ = mamba2_dims(cfg)
-    proj = x @ params["in_proj"]
+    proj = cb(x @ params["in_proj"], ("batch", None, "ssm"))
     z, xbc, dt = _split_proj(cfg, proj)
     prev = state.conv if state is not None else None
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
@@ -124,7 +136,8 @@ def mamba2_forward(params, cfg, x, state: SSMState = None):
     dtp = _softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())
     h0 = state.h if state is not None else None
-    y, h = ssd_chunked(xs, dtp, A, B, C, cfg.ssm_chunk, h0)
+    y, h = ssd_chunked(xs, dtp, A, B, C, cfg.ssm_chunk, h0,
+                       constrain=constrain)
     y = y + params["D"][None, None, :, None] * xs.float()
     y = y.reshape(*y.shape[:2], d_in)
     return _gated_norm_out(params, y, z, x.dtype), SSMState(h=h,

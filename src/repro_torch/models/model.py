@@ -9,7 +9,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import lm
-from repro_torch.models.params import TensorSpec, materialize
+from repro_torch.models.params import TensorSpec, abstractify, materialize
 from repro_torch.models.quant import quantize_spec_tree
 
 
@@ -21,6 +21,13 @@ def param_specs(cfg: ModelConfig, quantize: bool = False):
     if quantize:
         specs = dict(specs, blocks=quantize_spec_tree(specs["blocks"]))
     return specs
+
+
+def abstract_params(cfg: ModelConfig, sharding_fn=None, quantize=False):
+    """TensorSpec tree of the model's params (int8 blocks with
+    `quantize`), each with `sharding_fn(param)` as its sharding when
+    given (`Sharder.param_sharding`); nothing is allocated."""
+    return abstractify(param_specs(cfg, quantize), sharding_fn)
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,

@@ -110,14 +110,16 @@ def combine(y, w_tbl, slot, S: int, top_k: int):
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25):
+              capacity_factor: float = 1.25, constrain=None):
     """x: (B, S, d) -> (B, S, d), aux dict (lb_loss, z_loss, dropped_frac:
     0-d float32 tensors). Routing is per sequence (group); with S == 1 and
     B > 1 the batch routes as ONE group."""
+    cb = constrain if constrain is not None else (lambda a, axes: a)
     B, S, d = x.shape
     if S == 1 and B > 1:
         out, aux = moe_apply(params, x.reshape(1, B, d), top_k=top_k,
-                             capacity_factor=capacity_factor)
+                             capacity_factor=capacity_factor,
+                             constrain=constrain)
         return out.reshape(B, S, d), aux
     E = params["router"].shape[-1]
     cap = capacity(S, top_k, E, capacity_factor)
@@ -133,8 +135,8 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
 
     slot, tok_tbl, w_tbl, valid = slot_tables(gate_vals, gate_idx, E, cap)
     xp = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
-    ebuf = xp.gather(1, tok_tbl[..., None].expand(-1, -1, d)).reshape(
-        B, E, cap, d)
+    ebuf = cb(xp.gather(1, tok_tbl[..., None].expand(-1, -1, d)).reshape(
+        B, E, cap, d), ("batch", "experts", None, None))
     # SwiGLU experts, batched over (group, expert); silu(g) = g * sigmoid(g)
     # with each op rounded to the buffer's dtype, as the reference's
     # `jax.nn.silu` on a bf16 gate
@@ -142,7 +144,8 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     u = torch.einsum("becd,edf->becf", ebuf, params["w_up"])
     y = torch.einsum("becf,efd->becd", g * torch.sigmoid(g) * u,
                      params["w_down"])
-    out = combine(y, w_tbl, slot, S, top_k)
+    y = cb(y, ("batch", "experts", None, None))
+    out = cb(combine(y, w_tbl, slot, S, top_k), ("batch", None, None))
     dropped = (~valid).sum().float() / (B * S * top_k)
     return out, {"lb_loss": lb_loss, "z_loss": z_loss,
                  "dropped_frac": dropped}

@@ -1,9 +1,12 @@
 """Parameter-spec system.
 
 Models are described as nested dicts with :class:`Param` leaves. Each leaf
-carries its shape, dtype, init recipe and *logical* axis names (kept for
-parity with the reference; one card shards nothing). `materialize` turns a
-spec tree into real tensors on a device.
+carries its shape, dtype, init recipe and *logical* axis names, which
+`repro_torch.distributed.sharding` maps to mesh axes. The same tree is:
+
+* materialized into real tensors on a device (`materialize`), or
+* turned into `TensorSpec` stand-ins (with DTensor placements attached
+  when a `sharding_fn` is given) by `abstractify`: nothing is allocated.
 """
 from __future__ import annotations
 
@@ -32,9 +35,22 @@ class Param:
 
 
 class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor to be made (caches, SSM state)."""
+    """Shape and dtype of a tensor to be made (caches, SSM state), and the
+    sharding it is to have (`distributed.sharding`'s DTensor placements;
+    None when it is not sharded): the counterpart of the reference's
+    `jax.ShapeDtypeStruct`."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    sharding: Any = None
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def tree_map_params(fn: Callable[[Param], Any], tree):
+    """`fn` over the Param leaves of a spec tree (nested dicts)."""
+    return tree_map(fn, tree)
 
 
 def tree_map(fn: Callable[..., Any], tree, *rest):
@@ -115,6 +131,22 @@ def stack_params(trees):
             p0, shape=(len(ps),) + p0.shape, axes=("layers",) + p0.axes)
 
     return tree_map(_stack, *trees)
+
+
+def abstractify(tree, sharding_fn: Optional[Callable[[Param], Any]] = None):
+    """TensorSpec tree of a Param-spec tree (with `sharding_fn(p)` as each
+    leaf's sharding when given): zero allocation."""
+    return tree_map_params(
+        lambda p: TensorSpec(p.shape, p.dtype,
+                             None if sharding_fn is None else sharding_fn(p)),
+        tree)
+
+
+def param_bytes(tree) -> int:
+    """Bytes over the leaves of a spec tree, a TensorSpec tree or a tensor
+    tree: elements times the dtype's item size."""
+    return sum(int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+               for leaf in tree_leaves(tree))
 
 
 def count_params(tree) -> int:

@@ -6,6 +6,11 @@ None means "cuda" and raises where no card is visible
 (`repro_torch.device.resolve_device`). The fused shared-cache round
 follows the device alone (`kernels/fused_tlb/ops.py`): the CUDA kernel
 on the card, the plain PyTorch round on the CPU.
+
+The reference's `TLB_BACKENDS` and `resolve_tlb_backend` (and its
+`tlb_backend` field) are left out on purpose: they choose between its XLA
+round and its Pallas kernel, a choice the port makes by the tensors'
+device, so there is nothing left for a config to name.
 """
 from __future__ import annotations
 

@@ -54,7 +54,7 @@ import torch
 from repro_torch.core.design import (Design, DesignParams, as_design,
                                      canonical_design, design_params,
                                      stack_params, static_signature)
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sim import faults as faults_mod
 from repro_torch.sim.config import SimConfig
 from repro_torch.sim.convert import row_of, state_to_numpy
@@ -374,11 +374,32 @@ class FailureRecord:
             f"cycles={self.cycles}: {self.error_type}: {self.message}")
 
 
-def _check_devices(devices: Optional[int]) -> None:
-    if devices not in (None, 1):
-        raise NotImplementedError(
-            f"devices={devices}: rows over several CUDA devices are not "
-            "ported yet (ROADMAP.md, Queue 1); run on one device")
+def _visible_devices(device: torch.device) -> int:
+    """Devices a grid's rows can be sharded over: the visible CUDA devices
+    on CUDA, one on the CPU (tests patch this where the reference forces
+    host devices with XLA_FLAGS)."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _shard_devices(device: DeviceLike, n: int) -> List[torch.device]:
+    """The devices of `n` row shards: cuda:0 .. cuda:n-1 on CUDA, `n`
+    times the CPU on the CPU (its shards run one after another). Raises
+    ValueError naming `devices=n` when fewer devices are visible."""
+    dev = resolve_device(device)
+    visible = _visible_devices(dev)
+    if n > visible:
+        raise ValueError(
+            f"devices={n} but only {visible} {dev.type} device(s) visible")
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev] * n
+
+
+def _pad_rows(rows: list, multiple: int) -> list:
+    """`rows` padded up to a multiple of `multiple` by repeating its first
+    rows, as the reference pads (`src/repro/sim/runner.py:245`):
+    repeated rows are valid simulations; callers slice them off."""
+    return rows + rows[:(-len(rows)) % multiple]
 
 
 def _grid_pass(ccfg: SimConfig, designs: Sequence[Design],
@@ -391,6 +412,38 @@ def _grid_pass(ccfg: SimConfig, designs: Sequence[Design],
     dp = stack_params([design_params(d) for d in designs], len(bench_mixes),
                       ccfg.device)
     return _run_rows(ccfg, dp, [m for _ in designs for m in bench_mixes])
+
+
+def _sharded_pass(ccfg: SimConfig, designs: Sequence[Design],
+                  bench_mixes: Sequence[Tuple[Optional[str], ...]],
+                  devices: int) -> SimState:
+    """`_grid_pass` over `devices` shards: the rows (design-major) are
+    padded to a multiple of N (`_pad_rows`) and cut into N equal shards,
+    each run as a row-axis state of its own on its device
+    (`_shard_devices`) and brought to the host; the shards' rows are
+    joined in order and the padding sliced off. Rows are independent, so
+    every row equals the one-device pass bit for bit."""
+    devs = _shard_devices(ccfg.device, devices)
+    rows = [(d, m) for d in designs for m in bench_mixes]
+    padded = _pad_rows(rows, len(devs))
+    per = len(padded) // len(devs)
+    finals = []
+    for i, dev in enumerate(devs):
+        shard = padded[i * per:(i + 1) * per]
+        scfg = dataclasses.replace(ccfg, device=dev)
+        dp = stack_params([design_params(d) for d, _ in shard], 1, dev)
+        finals.append(_run_rows(scfg, dp, [m for _, m in shard]))
+    return _join_rows(finals, len(rows))
+
+
+def _join_rows(states: Sequence, n: int):
+    """Host states (numpy leaves with a row axis) joined along the rows
+    in order, cut to the first `n` rows."""
+    first = states[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_join_rows([s[i] for s in states], n)
+                             for i in range(len(first))))
+    return np.concatenate(states)[:n]
 
 
 def run_grid(designs: Sequence[DesignLike],
@@ -416,8 +469,13 @@ def run_grid(designs: Sequence[DesignLike],
     design's mixes are never split, whatever M is. Each chunk's final
     state comes to the host in one transfer.
 
-    `devices`: None or 1; rows over several devices are not ported yet
-    and raise NotImplementedError.
+    `devices=N` (> 1) shards each chunk's rows over N devices
+    (`_sharded_pass`: cuda:0 .. cuda:N-1, or N shards on the CPU one after
+    another), padding the rows to a multiple of N with repeated rows
+    that are sliced back off; the chunk cap becomes `max_rows * N`, as in
+    the reference, so each device still sees at most `max_rows` rows.
+    Sharded results are bit for bit the one-device results. More devices
+    than are visible raise ValueError naming `devices=N`.
 
     `fail_soft=True` catches a failing chunk (set-up error, execution
     error, or corrupt stats) into one `FailureRecord` naming every design
@@ -425,13 +483,16 @@ def run_grid(designs: Sequence[DesignLike],
     with the remaining chunks and groups. Default False keeps
     raise-on-first-error semantics.
     """
-    _check_devices(devices)
+    sharded = bool(devices) and devices > 1
+    if sharded:
+        _shard_devices(device, devices)
     ds = [as_design(d) for d in designs]
     n = _same_size(bench_mixes)
     if not ds:
         return []
     M = len(bench_mixes)
-    designs_per_call = max(max_rows // M, 1)
+    row_cap = max_rows * (devices if sharded else 1)
+    designs_per_call = max(row_cap // M, 1)
     out: List[List[Union[Dict, FailureRecord]]] = [[None] * M for _ in ds]
     groups: Dict[object, List[int]] = {}
     for i, d in enumerate(ds):
@@ -446,7 +507,9 @@ def run_grid(designs: Sequence[DesignLike],
         for lo in range(0, G, width):
             idxs = g_idxs[lo:lo + width]
             try:
-                final = _grid_pass(ccfg, [ds[i] for i in idxs], bench_mixes)
+                chunk = [ds[i] for i in idxs]
+                final = (_sharded_pass(ccfg, chunk, bench_mixes, devices)
+                         if sharded else _grid_pass(ccfg, chunk, bench_mixes))
                 for g, di in enumerate(idxs):
                     out[di] = [_stats(ccfg, row_of(final, g * M + m))
                                for m in range(M)]
@@ -845,8 +908,8 @@ def sweep(designs: Sequence[DesignLike],
     `grid=False` keeps the per-design `Experiment` loop; results are bit
     for bit identical either way.
 
-    `devices`: None or 1 (see `run_grid`); more needs the grid path and
-    is not ported yet.
+    `devices=N` shards each pass's rows over N devices (see `run_grid`);
+    it needs the grid path.
 
     `fail_soft=True`: a failing chunk of a group (or per-design
     experiment with `grid=False`) becomes a `FailureRecord` VALUE for
@@ -865,7 +928,6 @@ def sweep(designs: Sequence[DesignLike],
         return {d.name: Experiment(d, tuple(mixes), cycles, device).run(
             solo_baselines=solo_baselines, fail_soft=fail_soft)
             for d in ds}
-    _check_devices(devices)
     norm = _normalize_mixes(mixes)
     plans = _mix_plan(norm, solo_baselines)
     stats = {n: run_grid(ds, plan.rows, cycles, devices=devices,

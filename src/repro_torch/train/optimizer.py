@@ -5,8 +5,9 @@ Port of `repro.train.optimizer`. The update runs leaf by leaf in the
 reference's leaf order (sorted dict keys) and writes each leaf's new
 params and moments IN PLACE, so only one leaf's float32 temporaries are
 alive at a time: the counterpart of the reference's `donate_argnums` and
-of its `sequential_updates` barriers, which is why `OptConfig` has no
-such option. The step counter is a 0-d int32 tensor and every scalar
+of its `sequential_updates` barriers. Moments of a DTensor param are
+DTensors sharded like it, as the reference's moments shard like their
+params. The step counter is a 0-d int32 tensor and every scalar
 (clip scale, learning rate, bias corrections) stays on the params'
 device: an update reads nothing back to the host.
 """
@@ -31,6 +32,10 @@ class OptConfig:
     grad_clip: float = 1.0
     bf16_moments: bool = False
     warmup_steps: int = 100
+    # the reference's switch for optimization barriers between leaf
+    # updates; the port runs eagerly and always updates leaf by leaf, so
+    # True and False give the same update, value for value
+    sequential_updates: bool = True
 
 
 def lr_schedule(cfg: OptConfig, step):
@@ -41,6 +46,34 @@ def lr_schedule(cfg: OptConfig, step):
 
 def _moment_dtype(cfg: OptConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.bf16_moments else torch.float32
+
+
+def _zeros(p, dtype, drop=None) -> torch.Tensor:
+    """Zeros of p's shape, or of p's shape without dim `drop` (Adafactor's
+    factored moments), beside the param `p`: on its device, and for a
+    DTensor param a DTensor on its mesh that keeps each of p's shards on
+    the dim it lands on (a shard of the dropped dim replicates). Moments
+    shard like their param, as the reference's."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(p.shape)
+    if drop is not None:
+        drop %= p.dim()
+        del shape[drop]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+
+    placements = []
+    for pl in p.placements:
+        if isinstance(pl, Shard) and drop is not None:
+            d = pl.dim % p.dim()
+            pl = (Replicate() if d == drop
+                  else Shard(d - 1) if d > drop else pl)
+        placements.append(pl)
+    return dzeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                  placements=placements)
 
 
 def _step0(params) -> torch.Tensor:
@@ -55,11 +88,8 @@ def _step0(params) -> torch.Tensor:
 def adamw_init(params, cfg: OptConfig):
     mdt = _moment_dtype(cfg)
 
-    def zeros_like(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
-
-    return {"m": tree_map(zeros_like, params),
-            "v": tree_map(zeros_like, params),
+    return {"m": tree_map(lambda p: _zeros(p, mdt), params),
+            "v": tree_map(lambda p: _zeros(p, mdt), params),
             "step": _step0(params)}
 
 
@@ -101,12 +131,11 @@ def adamw_update(params, grads, state, cfg: OptConfig):
 
 def adafactor_init(params, cfg: OptConfig):
     def factored(p):
-        f32, dev = torch.float32, p.device
+        f32 = torch.float32
         if p.dim() >= 2:
-            return {"vr": torch.zeros(p.shape[:-1], dtype=f32, device=dev),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                      dtype=f32, device=dev)}
-        return {"v": torch.zeros(p.shape, dtype=f32, device=dev)}
+            return {"vr": _zeros(p, f32, drop=-1),
+                    "vc": _zeros(p, f32, drop=-2)}
+        return {"v": _zeros(p, f32)}
 
     return {"v": tree_map(factored, params), "step": _step0(params)}
 
@@ -157,21 +186,32 @@ def update(params, grads, state, cfg: OptConfig):
     return fn(params, grads, state, cfg)
 
 
-def abstract_state(param_specs_tree, cfg: OptConfig):
-    """TensorSpec tree of the optimizer state of a Param-spec tree."""
+def abstract_state(param_specs_tree, cfg: OptConfig, sharding_fn=None):
+    """TensorSpec tree of the optimizer state of a Param-spec tree.
+
+    sharding_fn: Param -> sharding (moments shard like their param; a
+    factored Adafactor moment as a Param of its own axes, as the
+    reference's)."""
     f32 = torch.float32
+
+    def moment(p: Param, dtype):
+        q = dataclasses.replace(p, dtype=dtype)
+        return TensorSpec(q.shape, q.dtype,
+                          None if sharding_fn is None else sharding_fn(q))
+
     step = TensorSpec((), torch.int32)
     if cfg.name == "adafactor":
         def fac(p: Param):
             if len(p.shape) >= 2:
-                return {"vr": TensorSpec(p.shape[:-1], f32),
-                        "vc": TensorSpec(p.shape[:-2] + p.shape[-1:], f32)}
-            return {"v": TensorSpec(p.shape, f32)}
+                vr = dataclasses.replace(p, shape=p.shape[:-1],
+                                         axes=p.axes[:-1])
+                vc = dataclasses.replace(p, shape=p.shape[:-2] + p.shape[-1:],
+                                         axes=p.axes[:-2] + p.axes[-1:])
+                return {"vr": moment(vr, f32), "vc": moment(vc, f32)}
+            return {"v": moment(p, f32)}
 
         return {"v": tree_map(fac, param_specs_tree), "step": step}
     mdt = _moment_dtype(cfg)
-    return {"m": tree_map(lambda p: TensorSpec(p.shape, mdt),
-                          param_specs_tree),
-            "v": tree_map(lambda p: TensorSpec(p.shape, mdt),
-                          param_specs_tree),
+    return {"m": tree_map(lambda p: moment(p, mdt), param_specs_tree),
+            "v": tree_map(lambda p: moment(p, mdt), param_specs_tree),
             "step": step}

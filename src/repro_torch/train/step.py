@@ -4,14 +4,17 @@ decode_step.
 Port of `repro.train.step`. Where the reference jits the step with
 `jax.value_and_grad`, the port runs eagerly and takes the gradient with
 `torch.autograd.grad` over the param leaves (`value_and_grad`).
-`constrain` is accepted for the reference's signature and ignored: one
-card shards nothing.
+`constrain` (default a no-op) reaches every `forward_*` call, as in the
+reference: with `distributed.sharding.Sharder.constrain` and DTensor
+params and optimizer state the same step runs sharded over a
+`DeviceMesh`, the batch given whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed.sharding import plain_as_replicated
 from repro_torch.models import model as M
 from repro_torch.models.losses import cross_entropy
 from repro_torch.models.params import tree_leaves, tree_map
@@ -32,19 +35,14 @@ def _loss_mask(cfg: ModelConfig, labels):
 def build_loss_fn(cfg: ModelConfig, run: RunConfig, constrain=None):
     """loss_fn(params, batch) -> (loss + AUX_WEIGHT * aux, metrics)."""
 
+    constrain = constrain or (lambda x, axes: x)
+
     def loss_fn(params, batch):
-        if cfg.is_enc_dec and \
-                batch["frames"].dtype != params["embed"]["table"].dtype:
-            # the reference promotes the encoder, and from the first cross
-            # attention the decoder, to float32 here; the port does not
-            raise NotImplementedError(
-                f"frames in {batch['frames'].dtype} with params in "
-                f"{params['embed']['table'].dtype}: cast the frames to the "
-                "params' dtype")
-        logits, aux = M.forward_train(cfg, run, params, batch)
-        loss, metrics = cross_entropy(logits, batch["labels"],
-                                      _loss_mask(cfg, batch["labels"]),
-                                      real_vocab=cfg.vocab_size)
+        logits, aux = M.forward_train(cfg, run, params, batch, constrain)
+        with plain_as_replicated(params):
+            loss, metrics = cross_entropy(logits, batch["labels"],
+                                          _loss_mask(cfg, batch["labels"]),
+                                          real_vocab=cfg.vocab_size)
         total = loss + AUX_WEIGHT * aux
         return total, dict(metrics, aux=aux)
 
@@ -61,7 +59,7 @@ def value_and_grad(loss_fn):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(leaves)
         tracked = tree_map(lambda _: next(it), params)
-        with torch.enable_grad():
+        with torch.enable_grad(), plain_as_replicated(params):
             loss, metrics = loss_fn(tracked, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         it = iter(torch.zeros_like(p) if g is None else g
@@ -111,14 +109,19 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
 
 def build_prefill_step(cfg: ModelConfig, run: RunConfig, max_len: int,
                        constrain=None):
+    constrain = constrain or (lambda x, axes: x)
+
     def prefill_step(params, batch):
-        return M.forward_prefill(cfg, run, params, batch, max_len)
+        return M.forward_prefill(cfg, run, params, batch, max_len, constrain)
 
     return prefill_step
 
 
 def build_decode_step(cfg: ModelConfig, run: RunConfig, constrain=None):
+    constrain = constrain or (lambda x, axes: x)
+
     def decode_step(params, caches, batch):
-        return M.forward_decode(cfg, run, params, batch, caches)
+        return M.forward_decode(cfg, run, params, batch, caches,
+                                constrain=constrain)
 
     return decode_step

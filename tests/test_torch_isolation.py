@@ -5,7 +5,9 @@
   `chip_smoke.py` and the `scripts/torch_*.py` import neither.
   The walk loads the serving slice (`serving/`, `launch/serve.py`,
   `sim/profiles.py`) and the training slice (`train/`, `data/`,
-  `checkpoint/`, `distributed/`, `models/losses.py`, `launch/train.py`).
+  `checkpoint/`, `distributed/`, `models/losses.py`, `launch/train.py`)
+  and the distributed layer (`distributed/sharding.py`, `launch/mesh.py`,
+  `roofline/`, `kernels/_dtensor.py`).
 * `run_mix`, the serving engine, the contention oracle and the
   launcher's `build_engine` with the default device run on CUDA or
   raise; they never carry on on the CPU. The fused round follows the device of its
@@ -40,7 +42,10 @@ SERVING = ("repro_torch.sim.profiles", "repro_torch.serving.engine",
            "repro_torch.train.loop", "repro_torch.data.pipeline",
            "repro_torch.checkpoint.checkpointer",
            "repro_torch.distributed.fault_tolerance",
-           "repro_torch.launch.train")
+           "repro_torch.launch.train", "repro_torch.distributed.sharding",
+           "repro_torch.launch.mesh", "repro_torch.roofline.analysis",
+           "repro_torch.roofline.hlo_parse", "repro_torch.roofline.counter",
+           "repro_torch.kernels._dtensor")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -64,7 +69,7 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 84     # every module was loaded
+    assert int(proc.stdout.split()[-1]) >= 91     # every module was loaded
 
 
 @pytest.mark.parametrize("path", [
