@@ -281,6 +281,25 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                bit-equal to phase 6's, 36 flash launches on the wgmma
                route; (d) the step's FLOPs from `roofline.counter` beside
                `roofline.analysis.model_flops` (printed, no limit).
+ 19. dryrun -- `launch/dryrun.py` on a 512-rank "fake" process group
+               (started after phase 18's group is gone, and ended):
+               (a) `lower_cell("mamba2-1.3b", "prefill_32k")` at full
+               width (48 layers, 32 x 32768 tokens, 2 sequences a rank on
+               the (16, 16) mesh's data axis) on the CUDA route: the
+               ssd kernel's fake branch 48 times, no launch; the report's
+               memory, FLOPs, HBM, collective keys and the roofline's
+               dominant term printed; (b) the same cell on the CPU route
+               (the plain SSD): argument, output and alias bytes and the
+               collective bytes by op equal (a)'s; both routes' counted
+               FLOPs and their ratio printed; (c) the counter's peak of
+               live bytes over qwen3-4b's 4 x 2048 bf16 prefill traced
+               under `FakeTensorMode` within 15% of the allocator's rise
+               (`max_memory_allocated` above the bytes allocated before)
+               over the same call run for real; (d) `python -m
+               repro_torch.launch.dryrun --arch qwen3-4b --shape
+               decode_32k --multi-pod both` in a subprocess: exit 0, two
+               reports, both ok; and `--shape long_500k` prints the
+               reference's skip line.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -3281,16 +3300,20 @@ def sharded_train_phase(torch, np, card):
         f"{per_micro} (plain {plain_launches}); step {plain_s:.2f} s plain, "
         f"{sharded_s:.2f} s sharded (with the counter on) [{card}]")
     log(f"[dist] (d) the sharded step's counter: dot_flops "
-        f"{counts['dot_flops']:.6g} (aten products; the SSD kernel counts "
-        f"0) beside model_flops {mflops:.6g} (6 x active params x tokens); "
-        f"ratio {counts['dot_flops'] / mflops:.4f}; collective bytes "
+        f"{counts['dot_flops']:.6g} (aten products, and the SSD kernel's "
+        f"own count of its products: {counts['kernels']}) beside "
+        f"model_flops {mflops:.6g} (6 x active params x tokens); ratio "
+        f"{counts['dot_flops'] / mflops:.4f}; HBM bytes "
+        f"{counts['hbm_bytes']:.6g}, peak live bytes "
+        f"{counts['peak_bytes']:.6g}; collective bytes "
         f"{counts['coll_bytes']:.6g} {counts['coll_by_op']} on one rank")
     return dict(arch=cfg.name, batch=DIST_TRAIN_B, seq=seq, mesh=[1, 1],
                 loss=float(want_loss), leaves=len(want), launches=launches,
                 plain_launches=plain_launches, plain_s=plain_s,
                 sharded_s=sharded_s, dot_flops=counts["dot_flops"],
                 model_flops=mflops, coll_bytes=counts["coll_bytes"],
-                coll_by_op=counts["coll_by_op"])
+                coll_by_op=counts["coll_by_op"],
+                hbm_bytes=counts["hbm_bytes"], kernels=counts["kernels"])
 
 
 def sharded_prefill_phase(torch, np, card, flash_attention_bhsd, want):
@@ -3334,6 +3357,167 @@ def sharded_prefill_phase(torch, np, card, flash_attention_bhsd, want):
         f"[{card}]")
     return dict(arch=cfg.name, batch=SERVE_B, seq=SERVE_S, mesh=[1, 1],
                 launches=flash_attention_bhsd.launches, s=secs)
+
+
+# ---- phase 19: the dry run ------------------------------------------------
+
+DRY_ARCH, DRY_SHAPE = "mamba2-1.3b", "prefill_32k"
+DRY_SAME = ("argument_size_in_bytes", "output_size_in_bytes",
+            "alias_size_in_bytes", "collective_bytes_by_op")
+DRY_TRACKER_TOL = 0.15     # the counter's peak against the allocator's
+DRY_CLI = ["--arch", "qwen3-4b", "--shape", "decode_32k", "--multi-pod",
+           "both"]
+
+
+def dryrun_route_phase(torch, card, ssd_intra_chunk):
+    """Phase 19 (a) and (b): the full-width mamba2 prefill cell traced on
+    the fake group on the CUDA route (the ssd kernel's fake branch, once a
+    layer, no launch), then on the CPU route; the memory and collective
+    keys equal. Any process group left running is ended first."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_model
+    from repro_torch.launch import dryrun
+    if dist.is_initialized():        # the dry run starts its own group
+        dist.destroy_process_group()
+    layers = get_model(DRY_ARCH).n_layers
+    launches, fakes = ssd_intra_chunk.launches, ssd_intra_chunk.fake_calls
+    t0 = time.perf_counter()
+    cuda = dryrun.lower_cell(DRY_ARCH, DRY_SHAPE, False, device="cuda")
+    cuda_s = time.perf_counter() - t0
+    fake_calls = ssd_intra_chunk.fake_calls - fakes
+    if fake_calls != layers or ssd_intra_chunk.launches != launches:
+        raise AssertionError(f"ssd fake calls {fake_calls} (want {layers}), "
+                             f"launches {ssd_intra_chunk.launches - launches}"
+                             " (want 0)")
+    if dist.is_initialized():
+        raise AssertionError("lower_cell left its process group running")
+    r = cuda["roofline"]
+    log(f"[dryrun] (a) {DRY_ARCH} {DRY_SHAPE} on the {cuda['mesh']} mesh "
+        f"({cuda['chips']} fake ranks), CUDA route: ssd fake calls "
+        f"{fake_calls} == {layers} layers, 0 launches; per rank: arguments "
+        f"{cuda['argument_size_in_bytes']} B, outputs "
+        f"{cuda['output_size_in_bytes']} B, temp "
+        f"{cuda['temp_size_in_bytes']} B, hbm_per_device "
+        f"{cuda['hbm_per_device_bytes']} B; parsed FLOPs "
+        f"{cuda['parsed_flops_per_device']:.6g}, HBM bytes "
+        f"{cuda['parsed_hbm_bytes_per_device']:.6g}, collectives "
+        f"{cuda['collective_bytes_by_op']}; kernels {cuda['kernels']}; "
+        f"roofline {r['dominant']} (compute {r['compute_s']:.4g} s, memory "
+        f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s), "
+        f"useful_flops_ratio {r['useful_flops_ratio']:.4f}; traced in "
+        f"{cuda['compile_s']} s, {cuda_s:.1f} s in all [{card}]")
+    t0 = time.perf_counter()
+    cpu = dryrun.lower_cell(DRY_ARCH, DRY_SHAPE, False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    differ = {k: (cuda[k], cpu[k]) for k in DRY_SAME if cuda[k] != cpu[k]}
+    if differ:
+        raise AssertionError(f"the routes' reports differ: {differ}")
+    ratio = cuda["parsed_flops_per_device"] / cpu["parsed_flops_per_device"]
+    log(f"[dryrun] (b) the same cell on the CPU route (the plain SSD): "
+        f"{', '.join(DRY_SAME)} equal (a)'s; parsed FLOPs "
+        f"{cpu['parsed_flops_per_device']:.6g} against the CUDA route's "
+        f"{cuda['parsed_flops_per_device']:.6g} (ratio {ratio:.4f}: the "
+        f"kernel's own count of its products replaces the plain version's "
+        f"einsums), HBM bytes {cpu['parsed_hbm_bytes_per_device']:.6g}, "
+        f"hbm_per_device {cpu['hbm_per_device_bytes']} B; {cpu_s:.1f} s "
+        f"[{card}]")
+    return dict(cell=f"{DRY_ARCH}__{DRY_SHAPE}__pod1", fake_calls=fake_calls,
+                cuda={k: cuda[k] for k in (
+                    "argument_size_in_bytes", "temp_size_in_bytes",
+                    "hbm_per_device_bytes", "parsed_flops_per_device",
+                    "parsed_hbm_bytes_per_device",
+                    "collective_bytes_per_device", "kernels")},
+                cpu_flops=cpu["parsed_flops_per_device"], flops_ratio=ratio,
+                dominant=r["dominant"], cuda_s=cuda_s, cpu_s=cpu_s)
+
+
+def dryrun_tracker_phase(torch, np, card, flash_attention_bhsd):
+    """Phase 19 (c): qwen3-4b's 4 x 2048 bf16 prefill for real (the rise of
+    `max_memory_allocated` above the bytes allocated before the call),
+    then traced under `FakeTensorMode` (the params and tokens made fake)
+    with the counter's live-bytes tracker: peaks within DRY_TRACKER_TOL."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.roofline.counter import StepCounter
+    model, cfg, run, params = model_setup(torch, None)
+    tokens = serve_tokens(torch, np, cfg)
+    max_len = SERVE_S + SERVE_NEW
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits, caches = model.forward_prefill(
+            cfg, run, params, {"tokens": tokens}, max_len=max_len)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        del logits, caches
+        mode = FakeTensorMode()
+        fparams = tree_map(mode.from_tensor, params)
+        ftokens = mode.from_tensor(tokens)
+        fakes = flash_attention_bhsd.fake_calls
+        with mode, StepCounter() as counter:
+            out = model.forward_prefill(cfg, run, fparams,
+                                        {"tokens": ftokens}, max_len=max_len)
+            peak = counter.peak
+        del out
+    del params, fparams
+    torch.cuda.empty_cache()
+    share = peak / rise
+    if abs(share - 1) > DRY_TRACKER_TOL:
+        raise AssertionError(f"tracker peak {peak} B against the allocator's "
+                             f"{rise} B ({share:.4f})")
+    log(f"[dryrun] (c) {cfg.name} prefill {SERVE_B} x {SERVE_S}: allocator "
+        f"rise {rise} B, the counter's traced peak {peak} B ({share:.4f} of "
+        f"it, limit 1 +- {DRY_TRACKER_TOL}); flash fake calls "
+        f"{flash_attention_bhsd.fake_calls - fakes} [{card}]")
+    return dict(allocator_rise=rise, tracker_peak=peak, share=share)
+
+
+def dryrun_cli_phase(card):
+    """Phase 19 (d): the dry run's CLI in subprocesses: DRY_CLI writes two
+    reports, both ok, and exits 0; long_500k of a full-attention arch
+    prints the reference's skip line."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(cli + DRY_CLI + ["--out", tmp], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        names = sorted(os.listdir(tmp))
+        reports = [json.loads(Path(tmp, n).read_text()) for n in names]
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    failed = [rep.get("traceback", "")[-3000:] for rep in reports
+              if "error" in rep]
+    if proc.returncode != 0 or len(reports) != 2 or failed:
+        raise AssertionError(f"dryrun CLI exited {proc.returncode}, reports "
+                             f"{names}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}\n" + "\n".join(failed))
+    skip = subprocess.run(cli + ["--arch", "qwen3-4b", "--shape",
+                                 "long_500k"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    want = ("[SKIP] qwen3-4b__long_500k (long_500k needs sub-quadratic "
+            "attention; see DESIGN.md §4)")
+    if skip.returncode != 0 or want not in skip.stdout.splitlines():
+        raise AssertionError(f"long_500k: exit {skip.returncode}, "
+                             f"{skip.stdout!r}")
+    for ln in lines:
+        log(f"[dryrun] (d) | {ln}")
+    for rep in reports:
+        log(f"[dryrun] (d) {rep['arch']} {rep['shape']} {rep['mesh']}: "
+            f"hbm_per_device {rep['hbm_per_device_bytes']} B, collectives "
+            f"{rep['collective_bytes_by_op']}, roofline "
+            f"{rep['roofline']['dominant']}")
+    log(f"[dryrun] (d) CLI {' '.join(DRY_CLI)}: exit 0, {names}, "
+        f"{wall:.1f} s; long_500k skipped as the reference [{card}]")
+    return dict(reports=names, wall_s=wall)
 
 
 def main():
@@ -3543,6 +3727,14 @@ def main():
     flash["distributed"] = sharded_prefill_phase(
         torch, np, card, flash_attention_bhsd, serve_logits)
     log(f"[dist] phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 19. the dry run ----------------------------------------------------
+    t0 = time.perf_counter()
+    ssd["dryrun"] = dryrun_route_phase(torch, card, ssd_intra_chunk)
+    flash["dryrun"] = dryrun_tracker_phase(torch, np, card,
+                                           flash_attention_bhsd)
+    flash["dryrun"]["cli"] = dryrun_cli_phase(card)
+    log(f"[dryrun] phase 19 took {time.perf_counter() - t0:.1f} s [{card}]")
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")

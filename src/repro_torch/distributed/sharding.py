@@ -50,7 +50,8 @@ def whole_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     rank: a mesh dim that shards one of them replicates instead, and a
     pending sum (`Partial`) is reduced; other shards stay. A plain tensor
     as it is. For ops that DTensor has no sharding rule for along a
-    sharded dim (a gather over the vocab)."""
+    sharded dim (a view into heads that a shard would split, a group of
+    MoE tokens routed together)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(x, DTensor):
@@ -61,6 +62,55 @@ def whole_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def split_last(x: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """(..., n * size) -> (..., n, size). A DTensor sharded along its last
+    dim over more ranks than divide `n` is made whole along it first:
+    DTensor cannot view a shard that ends inside one of the `n` pieces
+    (GQA's 8 kv heads on a 16-wide "model" axis), where the reference's
+    GSPMD splits the piece."""
+    if n % shard_ranks(x, -1):
+        x = whole_dims(x, -1)
+    return x.reshape(x.shape[:-1] + (n, size))
+
+
+def shard_ranks(x: torch.Tensor, dim: int) -> int:
+    """How many ranks split dim `dim` of a DTensor (the product of the mesh
+    dims that shard it); 1 for a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return 1
+    dim %= x.dim()
+    return int(np.prod([x.device_mesh.size(m)
+                        for m, pl in enumerate(x.placements)
+                        if isinstance(pl, Shard) and pl.dim % x.dim() == dim]))
+
+
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape` (for `from_local`,
+    without making a tensor of the global shape)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def shard_index(x: torch.Tensor, dim: int):
+    """(this rank's index among the even shards of DTensor `x` along
+    `dim`, the mesh dims that shard it, major first): the shard starts
+    at index * its local length."""
+    from torch.distributed.tensor import Shard
+
+    mesh, nd = x.device_mesh, x.dim()
+    dims = [m for m, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and pl.dim % nd == dim % nd]
+    idx, coord = 0, mesh.get_coordinate()
+    for m in dims:
+        idx = idx * mesh.size(m) + coord[m]
+    return idx, dims
 
 
 def _spec(entries) -> Spec:
@@ -106,6 +156,36 @@ def _replicating_plain():
                 yield
     finally:
         _replicating[0] -= 1
+
+
+class _Constrain(torch.autograd.Function):
+    """x redistributed to `want`; the gradient redistributed to `want`,
+    then to x's placements. Without the first step a gradient keeps
+    whatever placement the op after the constraint gave it (a sequence
+    shard from a slice's backward), which DTensor may then be unable to
+    take through the product before it."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        from torch.distributed.tensor import Replicate
+
+        ctx.want = want
+        out = (x if tuple(x.placements) == want
+               else x.redistribute(x.device_mesh, want))
+        # the gradient of a pending sum is replicated, as DTensor's own
+        # redistribute takes it back
+        ctx.have = tuple(Replicate() if pl.is_partial() else pl
+                         for pl in x.placements)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = g.device_mesh
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(mesh, ctx.want)
+        if ctx.have != ctx.want:
+            g = g.redistribute(mesh, ctx.have)
+        return g, None
 
 
 class Sharder:
@@ -204,17 +284,19 @@ class Sharder:
         return self.placements(self.act_spec(axes, shape))
 
     def constrain(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """Redistribute a DTensor to the placements of `axes` at its shape
-        (the counterpart of `with_sharding_constraint`); a plain tensor is
-        returned as it is."""
+        """Redistribute a DTensor to the placements of `axes` at its shape,
+        and its gradient to them on the way back (the counterpart of
+        `with_sharding_constraint`, whose transpose constrains the
+        cotangent alike); a plain tensor is returned as it is."""
         from torch.distributed.tensor import DTensor
 
         if not isinstance(x, DTensor):
             return x
         want = self.act_sharding(axes, tuple(x.shape))
-        if tuple(x.placements) == want:
-            return x
-        return x.redistribute(x.device_mesh, want)
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return (x if tuple(x.placements) == want
+                    else x.redistribute(x.device_mesh, want))
+        return _Constrain.apply(x, want)
 
     # ------------------------------------------------------------- misc
     def replicated(self):

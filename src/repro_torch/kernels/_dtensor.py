@@ -7,7 +7,8 @@ results are wrapped back as DTensors. That is right only where the
 kernel computes each index of a sharded dim on its own (batch, heads,
 chunks): `run_local` takes, for every input and output, the tensor dim
 of each such independent logical dim, and raises ValueError for an input
-sharded along any other dim, or unevenly.
+sharded along any other dim, or unevenly. The gradients that flow back
+out of `fn` to its inputs are made contiguous.
 """
 from __future__ import annotations
 
@@ -22,6 +23,21 @@ def is_dtensor(*ts) -> bool:
     from torch.distributed.tensor import DTensor
 
     return any(isinstance(t, DTensor) for t in ts)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """x as it is; its gradient made contiguous. A local backward may give
+    an input's gradient a transposed layout (an einsum's), and DTensor
+    views the gradient of a shard as if its layout were the global
+    one's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def run_local(fn: Callable, name: str, args: Sequence[torch.Tensor],
@@ -72,7 +88,7 @@ def run_local(fn: Callable, name: str, args: Sequence[torch.Tensor],
                    else a.redistribute(mesh, want))
     # one list of placements per output (a bare tuple of placements would
     # read as one per output)
-    return local_map(fn,
+    return local_map(lambda *xs: fn(*(_ContiguousGrad.apply(x) for x in xs)),
                      out_placements=tuple(list(placements(d))
                                           for d in out_dims),
                      in_placements=tuple(list(placements(d))

@@ -18,7 +18,12 @@ fp32), which need 16-byte aligned base addresses and strides
 (`tma_strides`); the model's tensors always qualify.
 `flash_attention_bhsd.launches` counts every launch, and
 `flash_attention_bhsd.route_launches[route]` those of each kernel, so a run
-can show which kernel it went through.
+can show which kernel it went through. Each call reports its work to an
+active step counter (`roofline.counter.kernel_work`, by `work`). Fake CUDA
+tensors (`FakeTensorMode`, a traced step) pass the same checks, but for
+the address (a fake tensor has none), and get their output allocated
+(fake) and their work counted; nothing is built or launched, and
+`flash_attention_bhsd.fake_calls` counts those calls.
 """
 from __future__ import annotations
 
@@ -26,9 +31,12 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.counter import counting, kernel_work
 
 HEAD_DIMS = (32, 64, 96, 128)    # head dims both kernels take
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "split_tf32"}
@@ -62,9 +70,10 @@ def tma_strides(t, name: str):
     Raises ValueError, naming the tensor, unless its address and the
     strides of its dims longer than 1 are multiples of 16 bytes, which TMA
     and the fp32 kernel's 16-byte copies need. A dim of length 1 is never
-    stepped over, so its stride is replaced by the head dim's length."""
+    stepped over, so its stride is replaced by the head dim's length. A
+    fake tensor's address is not checked."""
     nbytes = t.element_size()
-    if t.data_ptr() % TMA_ALIGN:
+    if not is_fake(t) and t.data_ptr() % TMA_ALIGN:
         raise ValueError(f"flash_attention: {name}'s address is not "
                          f"{TMA_ALIGN}-byte aligned (16-byte loads need it)")
     out = []
@@ -87,6 +96,21 @@ def check_tiling(Sq: int, Sk: int, block_q: int, block_k: int):
     if bq < 1 or bk < 1 or Sq % bq or Sk % bk:
         raise ValueError(f"flash_attention: Sq={Sq} and Sk={Sk} must be "
                          f"multiples of block_q={bq} and block_k={bk}")
+
+
+def work(q, k, causal=True, window: Optional[int] = None):
+    """(flop, bytes) of one call: 4 dh flop for each (q, k) pair the mask
+    lets through, per (batch, head), and the bytes of q, k, v and o, each
+    read or written once (the formulas of the kernel's bound in
+    `chip_smoke.py`)."""
+    B, H, Sq, dh = q.shape
+    Sk = k.shape[2]
+    qpos = np.arange(Sq)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, int)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return float(4 * dh * B * H * pairs), float(nbytes)
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True,
@@ -123,12 +147,19 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
     kind = route(q.dtype)
     strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"))
                for s in tma_strides(t, name)]
-    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
+    fake = is_fake(q)
+    if dev.type != "cuda" or not (
+            fake or dev.index == torch.cuda.current_device()):
         raise ValueError(f"flash_attention kernel needs tensors on the "
                          f"current CUDA device, got {dev}")
 
     o = torch.empty_like(q)          # q's layout (dense) or contiguous
     if o.numel() == 0:
+        return o
+    if counting():
+        kernel_work("flash_attention", *work(q, k, causal, window))
+    if fake:
+        flash_attention_bhsd.fake_calls += 1
         return o
     err = _entry(kind)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -148,4 +179,5 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.fake_calls = 0
 flash_attention_bhsd.route_launches = {kind: 0 for kind in SOURCES}

@@ -11,12 +11,15 @@ Decode uses the dense-cache path (`decode_attention_dense`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import whole_dims
+from repro_torch.distributed.sharding import (shard_ranks, split_last,
+                                               whole_dims)
+from repro_torch.kernels._dtensor import is_dtensor, run_local
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dot, head_rmsnorm_params
 from repro_torch.models.params import Param
@@ -59,9 +62,9 @@ def project_qkv(params, x, *, n_heads, n_kv, dh, positions, rope_theta,
                 qk_norm=False, use_rope=True):
     """x: (B, S, d) -> q (B,S,H,dh), k,v (B,S,KV,dh)."""
     B, S, _ = x.shape
-    q = dot(x, params["wq"]).reshape(B, S, n_heads, dh)
-    k = dot(x, params["wk"]).reshape(B, S, n_kv, dh)
-    v = dot(x, params["wv"]).reshape(B, S, n_kv, dh)
+    q = split_last(dot(x, params["wq"]), n_heads, dh)
+    k = split_last(dot(x, params["wk"]), n_kv, dh)
+    v = split_last(dot(x, params["wv"]), n_kv, dh)
     if qk_norm:
         q = _head_norm(params["q_norm"], q)
         k = _head_norm(params["k_norm"], k)
@@ -84,9 +87,28 @@ def _common(*ts):
 # Naive oracle
 # ---------------------------------------------------------------------------
 
+def _on_head_shards(fn, name, q, k, v):
+    """`fn(q, k, v)` of DTensors, run by each rank on its own shards: each
+    (batch, head) is attended on its own, and q's and k/v's heads split
+    over the same ranks keep every GQA group on one rank. Kv heads that
+    do not split that way are whole already (`split_last`) and are
+    repeated to H on each rank, which moves nothing."""
+    H, KV = q.shape[2], k.shape[2]
+    if KV != H and KV % shard_ranks(q, 2):
+        k = whole_dims(k, 2).repeat_interleave(H // KV, dim=2)
+        v = whole_dims(v, 2).repeat_interleave(H // KV, dim=2)
+    dims = {"batch": 0, "heads": 2}
+    return run_local(fn, name, (q, k, v), (dims,) * 3, (dims,))
+
+
 def naive_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                     q_offset: int = 0):
-    """q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh). GQA by head grouping. fp32 softmax."""
+    """q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh). GQA by head grouping. fp32 softmax.
+    DTensors run on each rank's batch and head shards."""
+    if is_dtensor(q, k, v):
+        return _on_head_shards(
+            functools.partial(naive_attention, causal=causal, window=window,
+                              q_offset=q_offset), "naive_attention", q, k, v)
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -141,13 +163,16 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     port keeps its results (ROADMAP Queue 3)."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    if is_dtensor(q, k, v):
+        return _on_head_shards(
+            functools.partial(blocked_attention, causal=causal,
+                              window=window, block_q=block_q,
+                              block_k=block_k),
+            "blocked_attention", q, k, v)
     if KV != H:
         G = H // KV
-        # a DTensor sharded along the kv heads is made whole along them
-        # first: DTensor cannot view the repeat's (KV, G) pair back into
-        # a sharded dim
-        k = whole_dims(k, 2).repeat_interleave(G, dim=2)
-        v = whole_dims(v, 2).repeat_interleave(G, dim=2)
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
     block_q = min(block_q, Sq)
     block_k = min(block_k, Sk)
     if Sq % block_q or Sk % block_k:
@@ -198,6 +223,10 @@ def decode_attention_dense(q, k_cache, v_cache, cache_len, *,
     B, S, KV, dh = k_cache.shape
     H = q.shape[2]
     G = H // KV
+    # a DTensor q (one token a sequence) is made whole along its heads:
+    # the cache is split along its length, and q's head shards would
+    # split the KV groups' products across it
+    q = whole_dims(q, 2)
     qg, kc = _common(q.reshape(B, KV, G, dh), k_cache)
     s = torch.einsum("bkgd,bskd->bkgs", qg, kc).float()
     s = s * _scale(dh)

@@ -4,6 +4,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (contiguous_strides,
+                                               shard_index, shard_ranks,
+                                               whole_dims)
 from repro_torch.models.params import Param
 
 
@@ -92,7 +95,38 @@ def embed_params(vocab: int, d: int):
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+    """The table's rows of `tokens`. A DTensor table split by vocab over
+    more than one rank is looked up on each rank's shard (`to_local` /
+    `from_local` carry the gradient): a token outside the shard reads 0,
+    and the result is a pending sum over the vocab's mesh dims, as in a
+    vocab-parallel embedding; its other dims are made whole first (the
+    FSDP gather at use). DTensor's own rule for the lookup varies by
+    torch version."""
+    table = params["table"]
+    if shard_ranks(table, 0) == 1:
+        return table[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    table = whole_dims(table, 1)
+    mesh = table.device_mesh
+    idx, vocab_dims = shard_index(table, 0)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rows = [Replicate() if m in vocab_dims else pl
+            for m, pl in enumerate(tokens.placements)]
+    tok = tokens.redistribute(mesh, rows).to_local().long()
+    local = table.to_local()
+    V = local.shape[0]
+    own = (tok >= idx * V) & (tok < idx * V + V)
+    out = local[(tok - idx * V).clamp(0, V - 1)]
+    out = torch.where(own[..., None], out, torch.zeros_like(out))
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(
+        out, mesh, [Partial("sum") if m in vocab_dims else pl
+                    for m, pl in enumerate(rows)],
+        run_check=False, shape=shape,
+        stride=contiguous_strides(shape))
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:

@@ -59,7 +59,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import plain_as_replicated
+from repro_torch.distributed.sharding import (plain_as_replicated,
+                                               shard_index, split_last)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
@@ -203,6 +204,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _merge_heads(o, constrain):
+    """(B, S, H, dh) -> (B, S, H * dh), constrained by heads: the gradient
+    then comes back split by heads, or whole, never split inside a head
+    (`wo`'s backward splits it over the model axis, which the view back
+    to (H, dh) cannot take when H does not split that way)."""
+    return constrain(o.reshape(o.shape[0], o.shape[1], -1),
+                     ("batch", None, "heads"))
+
+
 def _self_attention_full(cfg, run, lp, x, positions, constrain, build_cache):
     q, k, v = attn_mod.project_qkv(
         lp["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -218,10 +228,44 @@ def _self_attention_full(cfg, run, lp, x, positions, constrain, build_cache):
         q, k, v, impl=run.attention_impl, causal=True,
         window=cfg.sliding_window, block_q=run.attn_block_q,
         block_k=run.attn_block_k)
-    o = o.reshape(o.shape[0], o.shape[1], cfg.n_heads * cfg.head_dim)
+    o = _merge_heads(o, constrain)
     out = L.dot(o, lp["attn"]["wo"])
     return (constrain(out, ("batch", None, "embed")),
             ((k, v) if build_cache else None))
+
+
+def _write_slot(cache, slot, new):
+    """cache[b, slot[b]] = new[b] in place; cache (B, S, KV, dh), slot (B,),
+    new (B, KV, dh). A DTensor cache (batch and kvseq shards) is written
+    on each rank's own shard: `new` and `slot` are brought to the cache's
+    batch and head shards, and a slot outside this rank's kvseq range
+    writes back what is there. DTensor has no in-place rule for the
+    scatter, where the reference's GSPMD partitions it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device),
+              slot.long()] = new.to(cache.dtype)
+        return
+    mesh, pls = cache.device_mesh, cache.placements
+    new, slot = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        for t in (new, slot))
+    to_new = {0: Shard(0), 2: Shard(1), 3: Shard(2)}
+    new_l = new.redistribute(mesh, [to_new.get(pl.dim, Replicate())
+                                    if isinstance(pl, Shard) else Replicate()
+                                    for pl in pls]).to_local()
+    slot_l = slot.redistribute(mesh, [
+        Shard(0) if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+        for pl in pls]).to_local().long()
+    # this rank's first position along the kvseq dim (shards are even)
+    local = cache.to_local()
+    pos = slot_l - shard_index(cache, 1)[0] * local.shape[1]
+    ok = (pos >= 0) & (pos < local.shape[1])
+    rows = torch.arange(local.shape[0], device=local.device)
+    at = pos.clamp(0, local.shape[1] - 1)
+    local[rows, at] = torch.where(ok[:, None, None], new_l.to(local.dtype),
+                                  local[rows, at])
 
 
 def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len,
@@ -238,9 +282,8 @@ def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len,
     S = cache_k.shape[1]
     ring = cfg.sliding_window is not None and S <= cfg.sliding_window
     slot = cache_len % S if ring else cache_len.clamp_max(S - 1)
-    bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, slot.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot.long()] = v[:, 0].to(cache_v.dtype)
+    _write_slot(cache_k, slot, k[:, 0])
+    _write_slot(cache_v, slot, v[:, 0])
     cache_k = constrain(cache_k, ("batch", "kvseq", "kv_heads", None))
     cache_v = constrain(cache_v, ("batch", "kvseq", "kv_heads", None))
     if ring:
@@ -264,10 +307,10 @@ def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None,
     output, as the reference's promotion."""
     B, S, _ = x.shape
     dh, KV = cfg.head_dim, cfg.n_kv_heads
-    q = L.dot(x, lp["cross"]["wq"]).reshape(B, S, cfg.n_heads, dh)
+    q = split_last(L.dot(x, lp["cross"]["wq"]), cfg.n_heads, dh)
     if cross_kv is None:
-        k = L.dot(enc_out, lp["cross"]["wk"]).reshape(B, -1, KV, dh)
-        v = L.dot(enc_out, lp["cross"]["wv"]).reshape(B, -1, KV, dh)
+        k = split_last(L.dot(enc_out, lp["cross"]["wk"]), KV, dh)
+        v = split_last(L.dot(enc_out, lp["cross"]["wv"]), KV, dh)
     else:
         k, v = cross_kv
     if S == 1 or S * k.shape[1] <= 1 << 20:
@@ -278,7 +321,7 @@ def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None,
             bq -= 1
         o = attn_mod.blocked_attention(q, k, v, causal=False, block_q=bq,
                                        block_k=k.shape[1])
-    o = o.reshape(B, S, cfg.n_heads * dh)
+    o = _merge_heads(o, constrain)
     out = L.dot(o, lp["cross"]["wo"])
     return constrain(out, ("batch", None, "embed")), (k, v)
 
@@ -477,8 +520,11 @@ def encode(cfg: ModelConfig, run: RunConfig, params, frames,
     a stub, as in the reference). The encoder computes in the frames'
     dtype promoted with the weights' (float32 frames over bf16 weights run
     in float32). Bidirectional attention: naive when enc_len <= 2048, else
-    `run.attention_impl`. `constrain` is taken for the reference's
-    signature, which constrains nothing inside the encoder."""
+    `run.attention_impl`. The reference constrains nothing inside the
+    encoder and leaves its layouts to GSPMD; the port pins the residual
+    to ("batch", None, "embed") after each add (a no-op off a mesh), or
+    DTensor may reduce a pending sum into a sequence shard that the
+    products after it cannot take."""
     enc = params["encoder"]
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
     impl = "naive" if frames.shape[1] <= 2048 else run.attention_impl
@@ -492,9 +538,10 @@ def encode(cfg: ModelConfig, run: RunConfig, params, frames,
             lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             dh=cfg.head_dim, positions=positions, rope_theta=cfg.rope_theta)
         o = attn_mod.attention(q, k, v, impl=impl, causal=False)
-        x = x + L.dot(o.reshape(*o.shape[:2], -1), lp["attn"]["wo"])
+        x = constrain(x + L.dot(_merge_heads(o, constrain),
+                                lp["attn"]["wo"]), ("batch", None, "embed"))
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h)
+        x = constrain(x + L.mlp(lp["mlp"], h), ("batch", None, "embed"))
     return L.rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import split_last
+from repro_torch.kernels._dtensor import is_dtensor, run_local
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.params import Param, TensorSpec
 
@@ -65,7 +67,16 @@ def _split_proj(cfg, proj):
 
 def _causal_conv(xbc, conv_w, conv_b, prev=None):
     """Depthwise causal conv, width W. xbc: (B,S,C); prev: (B,W-1,C) or
-    None. Returns (silu(conv) in xbc's dtype, the last W-1 inputs)."""
+    None. Returns (silu(conv) in xbc's dtype, the last W-1 inputs).
+    DTensor inputs run on each rank's batch and channel shards
+    (`run_local`): each (row, channel) is convolved on its own, and the
+    zeros of a missing `prev` then take the shard's rows."""
+    if is_dtensor(xbc, conv_w, conv_b):
+        rows = {"batch": 0, "chan": 2}
+        args = (xbc, conv_w, conv_b) + (() if prev is None else (prev,))
+        dims = (rows, {"chan": 1}, {"chan": 0}, rows)
+        return run_local(_causal_conv, "causal_conv", args,
+                         dims[:len(args)], (rows, rows))
     W = conv_w.shape[0]
     if prev is None:
         prev = xbc.new_zeros((xbc.shape[0], W - 1, xbc.shape[2]))
@@ -132,7 +143,7 @@ def mamba2_forward(params, cfg, x, state: SSMState = None, constrain=None):
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                    prev)
     xs, B, C = torch.split(xbc, [d_in, cfg.ssm_state, cfg.ssm_state], dim=-1)
-    xs = xs.reshape(*xs.shape[:2], nh, cfg.ssm_head_dim)
+    xs = split_last(xs, nh, cfg.ssm_head_dim)
     dtp = _softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())
     h0 = state.h if state is not None else None
@@ -155,7 +166,7 @@ def mamba2_decode(params, cfg, x, state: SSMState):
     out = F.silu(out + params["conv_b"].float())[:, None, :].to(x.dtype)
     conv_state = xp[:, 1:]
     xs, B, C = torch.split(out, [d_in, cfg.ssm_state, cfg.ssm_state], dim=-1)
-    xs = xs.reshape(xs.shape[0], nh, cfg.ssm_head_dim)       # (B,nh,hd)
+    xs = split_last(xs[:, 0], nh, cfg.ssm_head_dim)          # (B,nh,hd)
     dtp = _softplus(dt[:, 0].float() + params["dt_bias"])    # (B,nh)
     A = -torch.exp(params["A_log"].float())
     decay = torch.exp(dtp * A[None, :])                      # (B,nh)

@@ -39,28 +39,35 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                        device=device, dtype_override=dtype_override)
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, TensorSpec]:
-    """Shape and dtype of every model input of this cell.
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                sharding_fn=None) -> Dict[str, TensorSpec]:
+    """Shape and dtype of every model input of this cell, each with
+    `sharding_fn(axes, shape)` as its sharding when given
+    (`Sharder.act_sharding`; the reference's axes: batch first).
 
     train:   {tokens, labels [, frames | patch_embeds]}
     prefill: {tokens [, frames | patch_embeds]}
     decode:  {tokens (B,1)}; the caches come from `cache_shapes`.
     """
     B, S = shape.global_batch, shape.seq_len
+
+    def mk(s, dt=torch.int32, axes=("batch", None)):
+        return TensorSpec(s, dt, None if sharding_fn is None
+                          else sharding_fn(axes, s))
+
     specs: Dict[str, TensorSpec] = {}
     if shape.kind in ("train", "prefill"):
-        specs["tokens"] = TensorSpec((B, S - (cfg.n_patches or 0)),
-                                     torch.int32)
+        specs["tokens"] = mk((B, S - (cfg.n_patches or 0)))
         if shape.kind == "train":
-            specs["labels"] = TensorSpec((B, S), torch.int32)
+            specs["labels"] = mk((B, S))
         if cfg.n_patches:
-            specs["patch_embeds"] = TensorSpec(
-                (B, cfg.n_patches, cfg.d_model), torch.bfloat16)
+            specs["patch_embeds"] = mk((B, cfg.n_patches, cfg.d_model),
+                                       torch.bfloat16, ("batch", None, None))
         if cfg.is_enc_dec:
-            specs["frames"] = TensorSpec((B, cfg.enc_len, cfg.d_model),
-                                         torch.bfloat16)
+            specs["frames"] = mk((B, cfg.enc_len, cfg.d_model),
+                                 torch.bfloat16, ("batch", None, None))
     else:  # decode
-        specs["tokens"] = TensorSpec((B, 1), torch.int32)
+        specs["tokens"] = mk((B, 1))
     return specs
 
 

@@ -24,8 +24,12 @@ equal.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed.sharding import whole_dims
+from repro_torch.kernels._dtensor import is_dtensor, run_local
 from repro_torch.models.params import Param
 
 
@@ -109,34 +113,59 @@ def combine(y, w_tbl, slot, S: int, top_k: int):
     return out
 
 
-def moe_apply(params, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, constrain=None):
-    """x: (B, S, d) -> (B, S, d), aux dict (lb_loss, z_loss, dropped_frac:
-    0-d float32 tensors). Routing is per sequence (group); with S == 1 and
-    B > 1 the batch routes as ONE group."""
-    cb = constrain if constrain is not None else (lambda a, axes: a)
+def _dispatch(x, router, top_k: int, cap: int):
+    """One group per row of x (B, S, d): routing, the aux-loss terms, the
+    slot tables and the gathered expert buffer. Returns ebuf (B, E, cap,
+    d), slot (B, S*K), w_tbl (B, E*cap), the per-group sum of me * ce
+    (B,), each token's squared logsumexp (B, S) and the dropped
+    assignments (B, S*K)."""
     B, S, d = x.shape
-    if S == 1 and B > 1:
-        out, aux = moe_apply(params, x.reshape(1, B, d), top_k=top_k,
-                             capacity_factor=capacity_factor,
-                             constrain=constrain)
-        return out.reshape(B, S, d), aux
-    E = params["router"].shape[-1]
-    cap = capacity(S, top_k, E, capacity_factor)
-    logits, probs, gate_vals, gate_idx = route(params, x, top_k)
-
-    # ---- aux losses (Switch formulation, averaged over groups) ----
+    E = router.shape[-1]
+    logits, probs, gate_vals, gate_idx = route({"router": router}, x, top_k)
     me = probs.mean(dim=1)                                   # (B, E)
     onehot = torch.zeros((B, S, E), dtype=torch.float32, device=x.device)
     onehot.scatter_(2, gate_idx, 1.0)                        # K distinct ids
     ce = onehot.mean(dim=1)                                  # (B, E)
-    lb_loss = E * (me * ce).sum(dim=-1).mean()
-    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-
+    lse2 = torch.logsumexp(logits, dim=-1).square()
     slot, tok_tbl, w_tbl, valid = slot_tables(gate_vals, gate_idx, E, cap)
     xp = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
-    ebuf = cb(xp.gather(1, tok_tbl[..., None].expand(-1, -1, d)).reshape(
-        B, E, cap, d), ("batch", "experts", None, None))
+    ebuf = xp.gather(1, tok_tbl[..., None].expand(-1, -1, d)).reshape(
+        B, E, cap, d)
+    return ebuf, slot, w_tbl, (me * ce).sum(dim=-1), lse2, ~valid
+
+
+def moe_apply(params, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, constrain=None):
+    """x: (B, S, d) -> (B, S, d), aux dict (lb_loss, z_loss, dropped_frac:
+    0-d float32 tensors). Routing is per sequence (group); with S == 1 and
+    B > 1 the batch routes as ONE group.
+
+    A DTensor x routes each rank's groups on the rank (`run_local`: the
+    router whole, the group's tokens whole, the batch of groups sharded),
+    as does the combine (the expert rows whole); the experts run as
+    DTensor products on the buffer constrained by experts."""
+    cb = constrain if constrain is not None else (lambda a, axes: a)
+    B, S, d = x.shape
+    if S == 1 and B > 1:
+        out, aux = moe_apply(params, whole_dims(x, 0).reshape(1, B, d),
+                             top_k=top_k, capacity_factor=capacity_factor,
+                             constrain=constrain)
+        return out.reshape(B, S, d), aux
+    E = params["router"].shape[-1]
+    cap = capacity(S, top_k, E, capacity_factor)
+    dispatch = functools.partial(_dispatch, top_k=top_k, cap=cap)
+    if is_dtensor(x):
+        rows = {"batch": 0}
+        ebuf, slot, w_tbl, lb, lse2, dropped = run_local(
+            dispatch, "moe_dispatch",
+            (whole_dims(x, 1, 2), whole_dims(params["router"], 0, 1)),
+            (rows, {}), (rows,) * 6)
+    else:
+        ebuf, slot, w_tbl, lb, lse2, dropped = dispatch(x, params["router"])
+    # ---- aux losses (Switch formulation, averaged over groups) ----
+    lb_loss = E * lb.mean()
+    z_loss = lse2.mean()
+    ebuf = cb(ebuf, ("batch", "experts", None, None))
     # SwiGLU experts, batched over (group, expert); silu(g) = g * sigmoid(g)
     # with each op rounded to the buffer's dtype, as the reference's
     # `jax.nn.silu` on a bf16 gate
@@ -145,7 +174,15 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     y = torch.einsum("becf,efd->becd", g * torch.sigmoid(g) * u,
                      params["w_down"])
     y = cb(y, ("batch", "experts", None, None))
-    out = cb(combine(y, w_tbl, slot, S, top_k), ("batch", None, None))
-    dropped = (~valid).sum().float() / (B * S * top_k)
+    mix = functools.partial(combine, S=S, top_k=top_k)
+    if is_dtensor(y):
+        rows = {"batch": 0}
+        out = run_local(mix, "moe_combine",
+                        (whole_dims(y, 1, 2, 3), w_tbl, slot),
+                        (rows,) * 3, (rows,))
+    else:
+        out = mix(y, w_tbl, slot)
+    out = cb(out, ("batch", None, None))
+    dropped = dropped.sum().float() / (B * S * top_k)
     return out, {"lb_loss": lb_loss, "z_loss": z_loss,
                  "dropped_frac": dropped}

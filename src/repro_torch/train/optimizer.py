@@ -48,7 +48,7 @@ def _moment_dtype(cfg: OptConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.bf16_moments else torch.float32
 
 
-def _zeros(p, dtype, drop=None) -> torch.Tensor:
+def zeros_like_param(p, dtype, drop=None) -> torch.Tensor:
     """Zeros of p's shape, or of p's shape without dim `drop` (Adafactor's
     factored moments), beside the param `p`: on its device, and for a
     DTensor param a DTensor on its mesh that keeps each of p's shards on
@@ -88,8 +88,8 @@ def _step0(params) -> torch.Tensor:
 def adamw_init(params, cfg: OptConfig):
     mdt = _moment_dtype(cfg)
 
-    return {"m": tree_map(lambda p: _zeros(p, mdt), params),
-            "v": tree_map(lambda p: _zeros(p, mdt), params),
+    return {"m": tree_map(lambda p: zeros_like_param(p, mdt), params),
+            "v": tree_map(lambda p: zeros_like_param(p, mdt), params),
             "step": _step0(params)}
 
 
@@ -133,9 +133,9 @@ def adafactor_init(params, cfg: OptConfig):
     def factored(p):
         f32 = torch.float32
         if p.dim() >= 2:
-            return {"vr": _zeros(p, f32, drop=-1),
-                    "vc": _zeros(p, f32, drop=-2)}
-        return {"v": _zeros(p, f32)}
+            return {"vr": zeros_like_param(p, f32, drop=-1),
+                    "vc": zeros_like_param(p, f32, drop=-2)}
+        return {"v": zeros_like_param(p, f32)}
 
     return {"v": tree_map(factored, params), "step": _step0(params)}
 

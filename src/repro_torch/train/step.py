@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.distributed.sharding import plain_as_replicated
+from repro_torch.distributed.sharding import (contiguous_strides,
+                                               plain_as_replicated,
+                                               whole_dims)
 from repro_torch.models import model as M
 from repro_torch.models.losses import cross_entropy
 from repro_torch.models.params import tree_leaves, tree_map
@@ -70,6 +72,33 @@ def value_and_grad(loss_fn):
     return grad_fn
 
 
+def split_micro(x: torch.Tensor, M_: int) -> torch.Tensor:
+    """(B, ...) -> (M_, B // M_, ...), the reference's `split_micro`. A
+    DTensor sharded along the batch is split on each rank's own rows
+    (local (b, ...) -> (M_, b // M_, ...), the batch shard moved to dim
+    1), so that every microbatch stays sharded along its batch and
+    nothing moves: microbatch i then holds rows i * b / M_ .. of each
+    rank's shard, not the reference's i * B / M_ .., which sums to the
+    same gradient. Where a rank's rows do not split M_ ways, the batch is
+    made whole first."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(x, DTensor) and any(
+            isinstance(pl, Shard) and pl.dim == 0 for pl in x.placements):
+        local = x.to_local()
+        if local.shape[0] % M_ == 0:
+            shape = (M_, x.shape[0] // M_) + tuple(x.shape[1:])
+            return DTensor.from_local(
+                local.reshape((M_, local.shape[0] // M_) + local.shape[1:]),
+                x.device_mesh,
+                [Shard(1) if isinstance(pl, Shard) and pl.dim == 0 else pl
+                 for pl in x.placements],
+                run_check=False, shape=shape,
+                stride=contiguous_strides(shape))
+        x = whole_dims(x, 0)
+    return x.reshape((M_, x.shape[0] // M_) + x.shape[1:])
+
+
 def build_train_step(cfg: ModelConfig, run: RunConfig,
                      opt_cfg: opt_mod.OptConfig, constrain=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -85,10 +114,10 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
         if M_ == 1:
             (loss, metrics), grads = grad_fn(params, batch)
         else:
-            micro = {k: v.reshape((M_, v.shape[0] // M_) + v.shape[1:])
-                     for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=acc_dt, device=p.device), params)
+            micro = {k: split_micro(v, M_) for k, v in batch.items()}
+            # sharded like the params, as the reference's accumulator
+            grads = tree_map(lambda p: opt_mod.zeros_like_param(p, acc_dt),
+                             params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=batch["labels"].device)
             for i in range(M_):
@@ -96,7 +125,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig,
                                                   for k, v in micro.items()})
                 tree_map(lambda a, b: a.add_(b.to(acc_dt)), grads, g)
                 del g
-                loss_sum = loss_sum + loss_i
+                with plain_as_replicated(params):
+                    loss_sum = loss_sum + loss_i
             grads = tree_map(lambda g: g.div_(M_), grads)
             metrics = {"loss": loss_sum / M_}
         params, opt_state, opt_metrics = opt_mod.update(

@@ -7,7 +7,8 @@
   `sim/profiles.py`) and the training slice (`train/`, `data/`,
   `checkpoint/`, `distributed/`, `models/losses.py`, `launch/train.py`)
   and the distributed layer (`distributed/sharding.py`, `launch/mesh.py`,
-  `roofline/`, `kernels/_dtensor.py`).
+  `roofline/`, `kernels/_dtensor.py`, `launch/dryrun.py`).
+* Every module of the JAX package has a counterpart path in the port.
 * `run_mix`, the serving engine, the contention oracle and the
   launcher's `build_engine` with the default device run on CUDA or
   raise; they never carry on on the CPU. The fused round follows the device of its
@@ -45,7 +46,7 @@ SERVING = ("repro_torch.sim.profiles", "repro_torch.serving.engine",
            "repro_torch.launch.train", "repro_torch.distributed.sharding",
            "repro_torch.launch.mesh", "repro_torch.roofline.analysis",
            "repro_torch.roofline.hlo_parse", "repro_torch.roofline.counter",
-           "repro_torch.kernels._dtensor")
+           "repro_torch.kernels._dtensor", "repro_torch.launch.dryrun")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -69,14 +70,15 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 91     # every module was loaded
+    assert int(proc.stdout.split()[-1]) >= 92     # every module was loaded
 
 
 @pytest.mark.parametrize("path", [
     "chip_smoke.py", "scripts/torch_step_profile.py",
     "scripts/torch_serve_profile.py", "scripts/torch_ssd_variants.py",
     "scripts/torch_paged_variants.py", "scripts/torch_trace_rate.py",
-    "scripts/torch_grid_time.py", "scripts/torch_train_profile.py"] + sorted(
+    "scripts/torch_grid_time.py", "scripts/torch_train_profile.py",
+    "scripts/torch_wrapper_ab.py", "scripts/torch_dryrun_probe.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "src/repro_torch").rglob("*.py")))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -90,6 +92,30 @@ def test_sources_import_no_jax(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "repro", "jaxlib"), \
                 f"{path}: imports {n}"
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port does all that the JAX package does: every
+    `src/repro/**/*.py` has a file at the same path under
+    `src/repro_torch/`."""
+    ref, port = ROOT / "src/repro", ROOT / "src/repro_torch"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (port / p.relative_to(ref)).exists())
+    assert not missing, missing
+    assert (port / "launch/dryrun.py").exists()
+
+
+def test_dryrun_default_device_raises_without_cuda():
+    """The dry run's fake tensors go to the card by default (its route);
+    without one it raises before any process group starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default runs on it")
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import lower_cell
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lower_cell("qwen3-4b", "decode_32k", False)
+    assert not dist.is_initialized()
 
 
 def test_default_device_raises_without_cuda():

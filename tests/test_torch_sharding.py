@@ -29,6 +29,12 @@ on the CPU.
   gradient entry by its own magnitude, so entries within ~1e-8 of zero
   turn reduction-order differences into update differences of up to lr
   (at lr 1e-3, 2.9e-4 of max |p|); the gradients are held directly.
+  The vocab is split on "model" there: `cross_entropy` alone on the
+  sharded logits (a padded tail masked) equals the whole-logits loss
+  within 1e-5 with no all-gather and all-reduces of (B, S) values only,
+  and `blocked_attention` on (batch, head) shards with GQA kv heads split
+  like q's equals the plain call and gathers nothing.
+* A (1, 1) mesh keeps the whole-vocab loss path, bit-equal.
 """
 import functools
 import json
@@ -283,7 +289,7 @@ rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world)
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from repro_torch.configs import ARCHS, reduced_model
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.distributed.sharding import Sharder
@@ -360,6 +366,33 @@ with torch.no_grad():
 out["ssd_logits"] = float((want - full(got)).abs().max()) / float(
     want.abs().max())
 out["ssd_local"] = [local[0], local[n]]
+
+# the vocab-sharded loss alone, on the sharded logits
+from repro_torch.distributed.sharding import plain_as_replicated
+from repro_torch.models import attention as attn
+from repro_torch.models.losses import cross_entropy
+with torch.no_grad():
+    lg, _ = M.forward_train(cfg, run, p2, batch, sh.constrain)
+    out["vocab_sharded"] = any(pl.is_shard(2) for pl in lg.placements)
+    with plain_as_replicated(lg):
+        (l_sh, m_sh), c = count_step(cross_entropy, lg, batch["labels"],
+                                     real_vocab=cfg.vocab_size - 3)
+    l_pl, m_pl = cross_entropy(full(lg), batch["labels"],
+                               real_vocab=cfg.vocab_size - 3)
+out["ce"] = [float(full(l_sh)), float(l_pl)]
+out["acc"] = [float(full(m_sh["accuracy"])), float(m_pl["accuracy"])]
+out["ce_coll"] = c["coll_by_op"]
+
+# blocked attention on (batch, head) shards, kv heads split like q's
+g = torch.Generator().manual_seed(3)
+q, k, v = (torch.randn(4, 32, h, 16, generator=g) for h in (4, 2, 2))
+want = attn.blocked_attention(q, k, v, block_q=16, block_k=16)
+dq, dk, dv = (distribute_tensor(t, mesh, [Shard(0), Shard(2)])
+              for t in (q, k, v))
+got, c = count_step(attn.blocked_attention, dq, dk, dv, block_q=16,
+                    block_k=16)
+out["attn_err"] = float((full(got) - want).abs().max())
+out["attn_coll"] = c["coll_by_op"]
 if rank == 0:
     print("RESULT " + json.dumps(out))
 dist.destroy_process_group()
@@ -402,6 +435,19 @@ def test_sharded_step_matches_one_process(tmp_path):
     (b, nc, q, nh, hd), local = res["ssd_local"]
     assert local == [b // 2, nc, q, nh // 2, hd]
     assert res["ssd_logits"] <= 1e-5
+    # the loss over a vocab split on "model": no gather of the logits,
+    # all-reduces of (B, S) values only (max, sum of exp, label logit,
+    # argmax value and index: 5 x 4 x 32 values of <= 8 B, and scalars)
+    assert res["vocab_sharded"]
+    l_sh, l_pl = res["ce"]
+    assert abs(l_sh - l_pl) <= 1e-5 * abs(l_pl)
+    assert res["acc"][0] == res["acc"][1]
+    assert "all-gather" not in res["ce_coll"], res["ce_coll"]
+    assert 0 < res["ce_coll"]["all-reduce"] <= 8 * 4 * 32 * 8, \
+        res["ce_coll"]
+    # GQA heads on head shards: each rank's own q and k/v heads, no gather
+    assert res["attn_err"] <= 1e-6
+    assert "all-gather" not in res["attn_coll"], res["attn_coll"]
 
 
 # ------------------------------------------- a (1, 1) mesh in this process
@@ -506,6 +552,28 @@ def test_one_rank_mesh_prefill_is_bit_equal(host_mesh):
     assert torch.equal(la, _full(lb))
     for key in ca:
         assert torch.equal(ca[key], _full(cb[key])), key
+
+
+def test_one_rank_mesh_loss_takes_the_whole_vocab_path(host_mesh,
+                                                      monkeypatch):
+    """On a (1, 1) mesh no mesh dim of size > 1 splits the vocab, so the
+    loss takes the whole-vocab path (the sharded one is stubbed to
+    raise), bit-equal to the plain call."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.distributed.sharding import plain_as_replicated
+    from repro_torch.models import losses
+    monkeypatch.setattr(losses, "_sharded_terms", lambda *a: 1 / 0)
+    g = torch.Generator().manual_seed(4)
+    logits = torch.randn(2, 8, 256, generator=g)
+    labels = torch.randint(0, 250, (2, 8), generator=g)
+    want = losses.cross_entropy(logits, labels, real_vocab=250)
+    d = distribute_tensor(logits, host_mesh, [Shard(0), Shard(2)])
+    with plain_as_replicated(d):
+        got = losses.cross_entropy(d, labels, real_vocab=250)
+    assert torch.equal(_full(got[0]), want[0])
+    for key in want[1]:
+        assert torch.equal(_full(got[1][key]), want[1][key]), key
 
 
 def test_kernels_refuse_a_coupled_shard(host_mesh):
