@@ -136,9 +136,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                reference test's 3 cases, `PAGED_EDGES` (G = 16 and 12 at
                dh 128, dh 96) and `PAGED_SPLIT_EDGES` (the CPU test's
                split cases and lengths 1, 128, 129, 8192 over 64 pages),
-               in both dtypes (atol = rtol = 2e-5 fp32, 3e-2 bf16); a q
-               off 16-byte alignment refused; then a paged
-               KV pool at qwen3-4b's serving
+               in both dtypes (atol = rtol = 2e-5 fp32, 3e-2 bf16); then
+               a paged KV pool at qwen3-4b's serving
                widths built through `repro_torch.memmgr` (36 layers, 520
                pages of 128 tokens, 8 KV heads of 128, bf16; 32 sequences
                under 4 ASIDs, seeded prompt lengths up to 2040 with 128,
@@ -300,6 +299,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                decode_32k --multi-pod both` in a subprocess: exit 0, two
                reports, both ok; and `--shape long_500k` prints the
                reference's skip line.
+ 20. contracts -- every input the reference's Pallas kernels take that
+               the card once refused, each on its hand-written kernel
+               against the plain version, within the limits above:
+               flash at dh 80, 100, 192 and 256 and H = 8 over KV = 1, in
+               both dtypes, and a q off 16 bytes and a k whose rows are
+               off 16 bytes (staged);
+               paged at G = 32 and 71, dh 80, 100 and 256, in both
+               dtypes, and a q off 16-byte alignment and a non-contiguous
+               one (staged); ssd at hd 128 / ds 256, hd 100 / ds 200, hd
+               256 / ds 256 over a chunk of 1040 rows (the windows), and a
+               non-contiguous x (staged); `fused_tlb` at 1056 lanes (132
+               cores) and 2048, on (3, 5) planes at R = 2 and on 16-way
+               planes off 16 bytes, bit-equal. Launches counted by route
+               and staged calls counted; dh 264, float16 and a chunk past
+               30656 rows raise ValueError with no launch. Timed, each
+               beside its bound (the wrapper's `work()` formulas) and the
+               plain version: flash at dh 256 (B 4, S 2048, 16 heads over
+               8 KV heads, causal) in both dtypes beside
+               `scaled_dot_product_attention`; paged at G 32 and 71; ssd
+               at hd 128, ds 256; `fused_tlb` at 1056 lanes. Phases 2-19
+               must count 0 staged calls.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -466,6 +486,25 @@ PAGED_SPLIT_EDGES = [(3, 8, 2, 64, 5, 60, (300, 125, 126)),
                      (3, 8, 8, 96, 16, 20, (320, 129, 0)),
                      (4, 32, 8, 128, 128, 64, (1, 128, 129, 8192))]
 PAGED_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
+# phase 20: the contracts. flash: (S, H, KV, dh, causal, window), B = 2
+CONTRACT_FLASH = [(300, 8, 2, 80, True, None), (300, 8, 2, 100, True, 90),
+                  (300, 8, 2, 192, False, None), (300, 8, 2, 256, True, None),
+                  (129, 8, 1, 256, True, 60), (200, 8, 1, 128, True, None)]
+# the timed wide heads: qwen3-4b's flop at dh 256 (B, S, H, KV, dh)
+CONTRACT_FLASH_TIMED = (4, 2048, 16, 8, 256)
+# paged: (B, H, KV, dh, page, npp) of `paged_inputs`
+CONTRACT_PAGED = [(3, 32, 1, 128, 16, 8), (3, 71, 1, 128, 16, 8),
+                  (2, 142, 2, 64, 8, 10), (3, 8, 2, 256, 16, 6),
+                  (3, 8, 2, 80, 16, 6), (3, 8, 2, 100, 16, 6)]
+# the timed groups: phase 11's pool lengths, (B, H, KV, dh, page, npp)
+CONTRACT_PAGED_TIMED = [(32, 32, 1, 128, 128, 16), (32, 71, 1, 128, 128, 16)]
+# ssd: (S, nh, hd, ds, chunk), B = 2, the reference test's draw
+CONTRACT_SSD = [(512, 4, 128, 256, 256), (300, 10, 100, 200, 300),
+                (2080, 2, 256, 256, 1040), (128, 8, 128, 64, 64)]
+CONTRACT_SSD_TIMED = dict(B=4, S=2048, nh=32, hd=128, ds=256, Q=256)
+# fused_tlb: (sets, ways, N, W); 1056 = 8 x 132 cores' lanes
+CONTRACT_TLB = [(1024, 16, 1056, 8), (1024, 16, 2048, 8), (64, 16, 1056, 4)]
+
 # the paged pool at qwen3-4b's serving widths
 POOL = dict(n_layers=36, page=128, n_kv=8, dh=128, heads=32, seqs=32,
             pages_per_seq=16, n_pages=520, asids=4, steps=8)
@@ -1302,16 +1341,6 @@ def paged_phase(torch, np, card):
         f"per sequence, lengths at and one past a split boundary, length "
         f"0, lengths 1 to 8192), each in fp32 and bf16 (atol = rtol = 2e-5 "
         f"fp32, 3e-2 bf16; max |err| {max(errs):.3g}) [{card}]")
-    q, kp, vp, bt, sl = paged_inputs(torch, np, 3, 8, 2, 64, 16, 6,
-                                     "bfloat16")
-    flat = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
-    odd = flat[1:q.numel() + 1].view(q.shape).copy_(q)
-    try:
-        paged_attention(odd, kp, vp, bt, sl)
-    except ValueError as e:
-        log(f"[paged] a q 2 bytes off 16-byte alignment is refused: {e}")
-    else:
-        raise AssertionError("paged_attention took a misaligned q")
 
     L, page, KV, dh, H = (POOL[k] for k in ("n_layers", "page", "n_kv", "dh",
                                             "heads"))
@@ -3520,6 +3549,405 @@ def dryrun_cli_phase(card):
     return dict(reports=names, wall_s=wall)
 
 
+def misaligned(torch, t, elems=1):
+    """A copy of `t` whose storage starts `elems` elements into a fresh
+    allocation: off 16-byte alignment for 2- and 4-byte elements."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    return flat[elems:].view(t.shape).copy_(t)
+
+
+def strided(torch, t, pad):
+    """A copy of `t` as a view of rows `pad` elements longer than its last
+    dim: not contiguous, its row stride (dh + pad) off 16 bytes for the
+    pads used here."""
+    buf = torch.zeros(tuple(t.shape[:-1]) + (t.shape[-1] + pad,),
+                      dtype=t.dtype, device=t.device)
+    return buf[..., :t.shape[-1]].copy_(t)
+
+
+def refused(fn, match, counter, what):
+    """Raise unless `fn()` raises ValueError naming `match` without a
+    launch (`counter()` unchanged)."""
+    before = counter()
+    try:
+        fn()
+    except ValueError as e:
+        if match not in str(e):
+            raise AssertionError(f"{what}: refused for another reason: {e}")
+    else:
+        raise AssertionError(f"{what}: not refused")
+    if counter() != before:
+        raise AssertionError(f"{what}: launched before refusing")
+    return match
+
+
+def contract_entry(name, source, replaces, launches, err, t, **extra):
+    """One kernel of the JSON line from a phase-20 timing `t`."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t.get("library_ms"),
+                **extra)
+
+
+def contract_flash(torch, np, kernel, card):
+    """Phase 20, flash: the wide and odd heads, H = 8 over one KV head and
+    staged layouts on both routes, the refusals, then dh 256 timed."""
+    from repro_torch.kernels.flash_attention.kernel import plan
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    errs, counts, entries = {}, {}, []
+    for dtype, kind in (("float32", "split_tf32"), ("bfloat16", "wgmma")):
+        zero_counts(kernel)
+        kernel.staged = 0
+        bf16 = dtype == "bfloat16"
+        errs[dtype], want_staged = [], 0
+        for S, H, KV, dh, causal, window in CONTRACT_FLASH:
+            q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, S + dh)
+            errs[dtype].append(flash_compare(
+                torch, kernel, attention_ref, q, k, v, causal, window,
+                FLASH_TOL[dtype], rounding=bf16, block_q=S, block_k=S)[0])
+            want_staged += plan(q.dtype, dh).staged
+        # a q off 16 bytes, and a k whose rows are off 16 bytes: staged
+        q, k, v = flash_inputs(torch, np, 200, 8, 2, 128, dtype, 5)
+        for qq, kk in ((misaligned(torch, q), k),
+                       (q, strided(torch, k.transpose(1, 2), 4 if bf16 else 2)
+                        .transpose(1, 2))):
+            errs[dtype].append(flash_compare(
+                torch, kernel, attention_ref, qq, kk, v, True, None,
+                FLASH_TOL[dtype], rounding=bf16, block_q=200,
+                block_k=200)[0])
+        want_staged += 2
+        n = len(CONTRACT_FLASH) + 2
+        routed(kernel, kind, n, f"{dtype} contracts")
+        if kernel.staged != want_staged:
+            raise AssertionError(f"flash {dtype}: {kernel.staged} staged "
+                                 f"calls, want {want_staged}")
+        counts[dtype] = dict(launches=n, staged=kernel.staged)
+    for dh, dtype, match in ((264, "bfloat16", "head dim 264"),
+                             (64, "float16", "must share one of")):
+        q, k, v = flash_inputs(torch, np, 64, 2, 1, dh, dtype, 1)
+        refused(lambda: kernel(q, k, v), match, lambda: kernel.launches,
+                f"flash dh {dh} {dtype}")
+    log(f"[contracts] flash == plain version at dh 80/100/192/256, H 8 "
+        f"over KV 1 and 2, causal, windowed and bidirectional, and on a q "
+        f"off 16 bytes and a k with rows off 16 bytes (staged), each "
+        f"route: launches and staged calls {counts} (max |err| fp32 "
+        f"{max(errs['float32']):.3g} within 2e-5, bf16 "
+        f"{max(errs['bfloat16']):.3g} within the rounding bound); dh 264 "
+        f"and float16 refused with no launch [{card}]")
+
+    B, S, H, KV, dh = CONTRACT_FLASH_TIMED
+    for dtype, kind, rate, passes in (
+            ("bfloat16", "wgmma", BF16_TENSOR_FLOPS, 1),
+            ("float32", "split_tf32", TF32_TENSOR_FLOPS, TF32_PASSES)):
+        bf16 = dtype == "bfloat16"
+        q, k, v = flash_inputs(torch, np, S, H, KV, dh, dtype, 0, B=B)
+        zero_counts(kernel)
+        err, share, typical = flash_compare(
+            torch, kernel, attention_ref, q, k, v, True, None,
+            FLASH_TOL[dtype], rounding=bf16)
+        routed(kernel, kind, 1, f"dh {dh} timed case")
+        t = flash_timing(torch, np, kernel, q, k, v, rate, passes)
+        log(f"[contracts] flash B={B} S={S} H={H} KV={KV} dh={dh} causal "
+            f"{dtype} ({kind}, instance {plan(q.dtype, dh).instance}): max "
+            f"|err| {err:.3g}, {share:.3g}x the "
+            f"{'rounding bound' if bf16 else 'tol'}; kernel {t['ms']:.4f} "
+            f"ms on the device ({t['tflops']:.1f} TFLOP/s, "
+            f"{t['bound_share']:.3f} of the bound), {t['launch_ms']:.4f} ms "
+            f"per launch from Python; plain version {t['plain_ms']:.3f} ms; "
+            f"scaled_dot_product_attention {t['library_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({passes} x "
+            f"{t['flops']:.4g} flop, {t['nbytes']:.4g} B) [{card}]")
+        entries.append(contract_entry(
+            "flash_attention_dh256" if bf16 else "flash_attention_fp32_dh256",
+            FLASH_SOURCES[kind],
+            "src/repro/kernels/flash_attention/kernel.py:26",
+            counts[dtype]["launches"], max(errs[dtype] + [err]), t,
+            kernel=kind, launch_ms=t["launch_ms"],
+            staged=counts[dtype]["staged"],
+            shape=dict(B=B, S=S, H=H, KV=KV, dh=dh, dtype=dtype,
+                       causal=True)))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return entries
+
+
+def paged_bound(torch, q, k_pages, table, seq_lens):
+    """Phase 11's bound of one call: the live K and V rows, q, o, the
+    table and the lengths, each once, over the HBM rate, against 4 H dh
+    flop a live token at the bf16 tensor rate."""
+    B, H, dh = q.shape
+    KV = k_pages.shape[2]
+    tokens = int(seq_lens.sum())
+    nbytes = (2 * tokens * KV * dh * k_pages.element_size()
+              + 2 * q.numel() * q.element_size() + table.numel() * 4 + B * 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * H * dh * tokens / BF16_TENSOR_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def contract_paged(torch, np, card):
+    """Phase 20, paged: G 32 and 71, dh 80/100/256, staged layouts, the
+    refusals, then G 32 and 71 timed at the pool's lengths."""
+    from repro_torch.kernels.paged_attention.kernel import (paged_attention,
+                                                            plan)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    errs, counts = [], {}
+    for dtype in ("float32", "bfloat16"):
+        paged_attention.launches = paged_attention.staged = 0
+        tol, want_staged, calls = PAGED_TOL[dtype], 0, []
+        for case in CONTRACT_PAGED:
+            args = paged_inputs(torch, np, *case, dtype)
+            calls.append((case, args))
+            want_staged += plan(args[0].dtype, case[3],
+                                case[1] // case[2]).staged
+        q, kp, vp, bt, sl = paged_inputs(torch, np, 3, 8, 2, 64, 16, 6,
+                                         dtype)
+        calls.append(("q off 16 bytes",
+                      (misaligned(torch, q), kp, vp, bt, sl)))
+        calls.append(("q not contiguous",
+                      (strided(torch, q, 8), kp, vp, bt, sl)))
+        want_staged += 2
+        for case, args in calls:
+            got = paged_attention(*args).float()
+            want = paged_attention_ref(*args).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            errs.append(float(err.max()))
+            if bool((err > tol + tol * want.abs()).any()):
+                raise AssertionError(f"paged kernel != plain version {case} "
+                                     f"{dtype}: max |err| {errs[-1]:.3g}")
+        if paged_attention.launches != len(calls) \
+                or paged_attention.staged != want_staged:
+            raise AssertionError(f"paged {dtype}: {paged_attention.launches}"
+                                 f" calls, {paged_attention.staged} staged; "
+                                 f"want {len(calls)}, {want_staged}")
+        counts[dtype] = dict(launches=len(calls), staged=want_staged)
+    for dh, dtype, match in ((264, "bfloat16", "head dim 264"),
+                             (64, "float16", "float16")):
+        args = paged_inputs(torch, np, 2, 4, 2, dh, 8, 2, dtype)
+        refused(lambda: paged_attention(*args), match,
+                lambda: paged_attention.launches, f"paged dh {dh} {dtype}")
+    log(f"[contracts] paged == plain version at G 32 and 71 (one KV head), "
+        f"142 heads over 2, dh 256, 80 and 100, and a q off 16 bytes and "
+        f"one not contiguous (staged), both dtypes: calls and staged "
+        f"{counts} (atol = rtol = 2e-5 fp32, 3e-2 bf16; max |err| "
+        f"{max(errs):.3g}); dh 264 and float16 refused with no launch "
+        f"[{card}]")
+
+    entries = []
+    lens = pool_lens(np) + POOL["steps"]
+    for B, H, KV, dh, page, npp in CONTRACT_PAGED_TIMED:
+        args = paged_inputs(torch, np, B, H, KV, dh, page, npp, "bfloat16",
+                            lens)
+        how = plan(args[0].dtype, dh, H // KV)
+        paged_attention.launches = 0
+        got = paged_attention(*args)
+        want = paged_attention_ref(*args)
+        gathered = args[3].long()
+        T = npp * page
+        kg = args[1][gathered].reshape(B, T, KV, dh)
+        vg = args[2][gathered].reshape(B, T, KV, dh)
+        _, spread = dense_decode(torch, args[0], kg, vg, args[4])
+        del kg, vg
+        err, share = rounding_check(torch, got, want, spread,
+                                    f"paged kernel at G {H // KV}")
+        run = lambda: paged_attention(*args)             # noqa: E731
+        t = dict(ms=time_events(torch, run, 20),
+                 launch_ms=time_host(torch, run, 10),
+                 plain_ms=time_events(
+                     torch, lambda: paged_attention_ref(*args), 3, 1))
+        t["bound_ms"], t["bound_by"] = paged_bound(torch, args[0], args[1],
+                                                   args[3], args[4])
+        log(f"[contracts] paged B={B} H={H} KV={KV} (G {H // KV}: "
+            f"{how.groups} groups of {how.heads} heads) dh={dh} page={page}, "
+            f"{int(args[4].sum())} live tokens, bf16: max |err| {err:.3g}, "
+            f"{share:.3g}x the rounding bound; kernel {t['ms']:.4f} ms on "
+            f"the device, {t['launch_ms']:.4f} ms per call from Python; "
+            f"plain version {t['plain_ms']:.3f} ms; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} [{card}]")
+        entries.append(contract_entry(
+            f"paged_attention_g{H // KV}",
+            "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention/kernel.py:31",
+            sum(c["launches"] for c in counts.values()), max(errs + [err]),
+            t, launch_ms=t["launch_ms"],
+            staged=sum(c["staged"] for c in counts.values()),
+            shape=dict(B=B, H=H, KV=KV, dh=dh, page=page, pages_per_seq=npp,
+                       live_tokens=int(args[4].sum()), dtype="bfloat16",
+                       groups=how.groups, heads=how.heads)))
+    return entries
+
+
+def ssd_args(torch, np, S, nh, hd, ds, chunk):
+    """The reference test's draw, chunked for the intra-chunk kernel."""
+    from repro_torch.kernels.ssd_scan import ops
+    rng = np.random.RandomState(S + nh)
+    arrays = [rng.randn(2, S, nh, hd) * .5,
+              np.abs(rng.randn(2, S, nh)) * .1 + .02,
+              -np.abs(rng.randn(nh)) * .5 - .1,
+              rng.randn(2, S, ds) * .5, rng.randn(2, S, ds) * .5]
+    return ops.chunk_inputs(*(torch.tensor(a, dtype=torch.float32,
+                                           device="cuda") for a in arrays),
+                            chunk)
+
+
+def contract_ssd(torch, np, card):
+    """Phase 20, ssd: hd and ds past the tiles (the WIDE instances, with
+    and without cs windows), a non-contiguous x, the refusal, then hd 128
+    / ds 256 timed."""
+    from repro_torch.kernels.ssd_scan import kernel as kmod
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    kernel = kmod.ssd_intra_chunk
+    kernel.launches = kernel.staged = 0
+    errs = []
+    for case in CONTRACT_SSD:
+        errs.append(ssd_compare(torch, kernel, ssd_intra_chunk_ref,
+                                ssd_args(torch, np, *case), SSD_TOL)[0])
+    x, dA, Bm, Cm = ssd_args(torch, np, *CONTRACT_SSD[0])
+    errs.append(ssd_compare(torch, kernel, ssd_intra_chunk_ref,
+                            (strided(torch, x, 4), dA, Bm, Cm), SSD_TOL)[0])
+    n = len(CONTRACT_SSD) + 1
+    if kernel.launches != n or kernel.staged != 1:
+        raise AssertionError(f"ssd: {kernel.launches} launches, "
+                             f"{kernel.staged} staged; want {n}, 1")
+    counts = dict(launches=n, staged=kernel.staged)
+    z = torch.zeros(1, 1, kmod.Q_MAX + 1, 1, 1, device="cuda")
+    zb = torch.zeros(1, 1, kmod.Q_MAX + 1, 1, device="cuda")
+    refused(lambda: kernel(z, zb[..., 0:1], zb, zb), "chunk 30657",
+            lambda: kernel.launches, "ssd chunk 30657")
+    log(f"[contracts] ssd == plain version at hd/ds 128/256, 100/200, "
+        f"256/256 over a chunk of 1040 rows (windows) and 128/64, and on a "
+        f"non-contiguous x (staged): {counts} (atol = rtol = {SSD_TOL}; max "
+        f"|err| {max(errs):.3g}); a chunk of 30657 rows refused with no "
+        f"launch [{card}]")
+
+    sv = CONTRACT_SSD_TIMED
+    B_, S, nh, hd, ds, Q = (sv[k] for k in ("B", "S", "nh", "hd", "ds", "Q"))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, B, C = draw(B_, S, nh, hd) * .5, draw(B_, S, ds) * .5, \
+        draw(B_, S, ds) * .5
+    dt = torch.rand((B_, S, nh), generator=gen, device="cuda") * .1 + .02
+    A = -(torch.rand((nh,), generator=gen, device="cuda") * .5 + .1)
+    args = ops.chunk_inputs(x, dt, A, B, C, Q)
+    err, share = ssd_compare(torch, kernel, ssd_intra_chunk_ref, args)
+    run = lambda: kernel(*args)                           # noqa: E731
+    t = dict(ms=time_events(torch, run, 20),
+             launch_ms=time_host(torch, run, 10),
+             plain_ms=time_events(torch, lambda: ssd_intra_chunk_ref(*args),
+                                  3, 1))
+    nc = S // Q
+    products, nbytes = kmod.work(B_, nc, Q, nh, hd, ds)
+    pairs = Q * (Q + 1) // 2
+    elementwise = B_ * nc * nh * (2 * pairs + Q * hd + Q)
+    terms = {"operations": max(3 * products / TF32_TENSOR_FLOPS,
+                               elementwise / CUDA_CORE_OPS_PER_S) * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    t["bound_by"] = max(terms, key=terms.get)
+    t["bound_ms"] = terms[t["bound_by"]]
+    how = kmod.plan(hd, ds, Q)
+    log(f"[contracts] ssd B={B_} S={S} nh={nh} hd={hd} ds={ds} Q={Q} fp32 "
+        f"({how.hd_slices} hd slices x {how.ds_slices} ds slices): max "
+        f"|err| {err:.3g}, {share:.3g}x the sum-of-|terms| limit; kernel "
+        f"{t['ms']:.4f} ms on the device ({t['bound_ms'] / t['ms']:.3f} of "
+        f"the bound), {t['launch_ms']:.4f} ms per launch from Python; "
+        f"plain version {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} "
+        f"ms by {t['bound_by']} ({products:.4g} flop x 3 split-TF32 passes, "
+        f"{elementwise:.4g} elementwise ops, {nbytes:.4g} B) [{card}]")
+    del x, B, C, dt, args
+    torch.cuda.empty_cache()
+    return [contract_entry(
+        "ssd_scan_hd128_ds256", "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:29", counts["launches"],
+        max(errs + [err]), t, launch_ms=t["launch_ms"],
+        staged=counts["staged"], shape=dict(sv, dtype="float32"))]
+
+
+def contract_tlb(torch, np, card, fused_tlb_round, fused_tlb_access_ref):
+    """Phase 20, fused_tlb: more lanes than threads, planes of 5 ways at R
+    = 2 (rows off 16 bytes), 16-way planes off 16 bytes; bit-equal. Then
+    1056 lanes timed."""
+    from repro_torch.kernels.fused_tlb.kernel import instance, rows_aligned
+    fused_tlb_round.launches = 0
+    cases = [path_case(np, *shape, masks, seed=sum(shape))
+             for shape in CONTRACT_TLB for masks in ("all", "half")]
+    rng = np.random.RandomState(35)
+    rows = []
+    for _ in range(2):           # two rows of (3, 5) planes: 60 B a row
+        rows.append(dict(
+            tags=rng.randint(-1, 40, (3, 5)).astype(np.int32),
+            asids=rng.randint(0, 3, (3, 5)).astype(np.int32),
+            lru=rng.randint(0, 100, (3, 5)).astype(np.int32),
+            vpn=rng.randint(0, 50, (24,)).astype(np.int32),
+            asid=rng.randint(0, 3, (24,)).astype(np.int32),
+            active=rng.rand(24) > 0.25, may_fill=rng.rand(24) > 0.2,
+            time=77, n_waves=6, track_asids=True))
+    cases.append(stack_cases(np, rows))
+    err = max(compare(torch, fused_tlb_round, fused_tlb_access_ref, c)
+              for c in cases)
+    # 16-way planes 4 bytes off 16-byte alignment: the word-reading instance
+    case = path_case(np, *L2_SHAPE, "half", seed=36)
+    ka, kw = on_card(torch, case)
+    pa, _ = on_card(torch, case)
+    ka[:3] = [misaligned(torch, t) for t in ka[:3]]
+    if instance(16, rows_aligned(ka[:3], 1)) != 0:
+        raise AssertionError("misaligned 16-way planes not planned onto "
+                             "the word-reading instance")
+    for a, b, name in zip(fused_tlb_round(*ka, case["time"], **kw),
+                          fused_tlb_access_ref(*pa, case["time"], **kw),
+                          ("tags", "asids", "lru", "hit", "filled")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"fused_tlb on misaligned planes != plain "
+                                 f"version on {name}")
+    launches = fused_tlb_round.launches
+    if launches != len(cases) + 1:
+        raise AssertionError(f"fused_tlb launched {launches} times for "
+                             f"{len(cases) + 1} rounds")
+    log(f"[contracts] fused_tlb == plain version, bit for bit, at 1056 and "
+        f"2048 lanes (wide instances), on (3, 5) planes at R = 2 and on "
+        f"16-way planes 4 bytes off 16-byte alignment (the word-reading "
+        f"instance): {launches} launches (max |err| {err}) [{card}]")
+
+    case = path_case(np, *CONTRACT_TLB[0], "half", seed=1)
+    args, kw = on_card(torch, case)
+    out = fused_tlb_access_ref(*args, case["time"], **kw)
+    least, bound_by = bound(np, case, [t.cpu().numpy() for t in out])
+    t = dict(ms=time_round_graph(torch, fused_tlb_round, case, 200),
+             launch_ms=time_round(torch, fused_tlb_round, case, 500),
+             plain_ms=time_round(torch, fused_tlb_access_ref, case, 50),
+             bound_ms=least, bound_by=bound_by)
+    log(f"[contracts] fused_tlb L2 round 1024x16, N=1056, W=8 (132 cores): "
+        f"kernel {t['ms'] * 1e3:.2f} us on the device (graph replay), "
+        f"{t['launch_ms'] * 1e3:.2f} us per launch from Python; plain "
+        f"version {t['plain_ms'] * 1e3:.2f} us; bound {least * 1e3:.4f} us "
+        f"by {bound_by} [{card}]")
+    return [contract_entry(
+        "fused_tlb_1056_lanes", "src/repro_torch/csrc/fused_tlb.cu",
+        "src/repro/kernels/fused_tlb/kernel.py:44", launches, err, t,
+        launch_ms=t["launch_ms"], shape=dict(sets=1024, ways=16, lanes=1056,
+                                             waves=8))]
+
+
+def contracts_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
+                    flash_attention_bhsd):
+    """Phase 20: the inputs the card once refused, on the hand-written
+    kernels. Returns the new instances' entries of the JSON line."""
+    t0 = time.perf_counter()
+    entries = contract_flash(torch, np, flash_attention_bhsd, card)
+    entries += contract_paged(torch, np, card)
+    entries += contract_ssd(torch, np, card)
+    entries += contract_tlb(torch, np, card, fused_tlb_round,
+                            fused_tlb_access_ref)
+    log(f"[contracts] phase 20 took {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3533,6 +3961,7 @@ def main():
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.fused_tlb.kernel import fused_tlb_round
     from repro_torch.kernels.fused_tlb.ref import fused_tlb_access_ref
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
     from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
     from repro_torch.sim import runner
 
@@ -3553,6 +3982,9 @@ def main():
                 if "registers" in line or "spill" in line:
                     log(f"[build] ptxas: {line.strip()}")
     log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.2f} s")
+    staging = (flash_attention_bhsd, paged_attention, ssd_intra_chunk)
+    for kernel in staging:            # phases 2-19 stage nothing
+        kernel.staged = 0
 
     # ---- 2. kernel against its plain version ----------------------------
     cases = []
@@ -3735,6 +4167,15 @@ def main():
                                            flash_attention_bhsd)
     flash["dryrun"]["cli"] = dryrun_cli_phase(card)
     log(f"[dryrun] phase 19 took {time.perf_counter() - t0:.1f} s [{card}]")
+    staged = {k.__name__: k.staged for k in staging}
+    if any(staged.values()):
+        raise AssertionError(f"phases 2-19 staged calls: {staged}")
+    log(f"[smoke] staged calls over phases 2-19 (every model path): "
+        f"{staged}")
+
+    # ---- 20. the kernels' contracts ---------------------------------------
+    contracts = contracts_phase(torch, np, card, fused_tlb_round,
+                                fused_tlb_access_ref, flash_attention_bhsd)
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")
@@ -3757,7 +4198,7 @@ def main():
              int8=families["int8"]),
         flash_fp32,
         ssd,
-        paged]}),
+        paged] + contracts}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

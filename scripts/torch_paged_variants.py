@@ -67,25 +67,30 @@ size_t split_smem_bytes(int G, int page, int pps) {
   return sizeof(float) * (size_t(G) * page + 3 * size_t(G));
 }
 
-template <typename T, int DH, int GB>
+template <typename T, int DH, int GB, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ seq_lens,
                    float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int H, int KV, int G,
-                   int page, int n_pages, int P, int pps, int n_splits,
-                   float scale) {
+                   float* __restrict__ part_acc, int H, int KV, int G_all,
+                   int GS, int n_groups, int dh, int page, int n_pages,
+                   int P, int pps, int n_splits, float scale) {
   constexpr int NV = DH / 32;     // head-dim elements per lane
+  const int s = blockIdx.x % n_splits;
+  const int rest = blockIdx.x / n_splits;
+  const int hg = rest % n_groups, kv = (rest / n_groups) % KV,
+            b = rest / n_groups / KV;
+  const int G = min(GS, G_all - hg * GS);
   extern __shared__ float smem[];
   float* ss = smem;               // G x page: scores, then p
   float* m_s = ss + G * page;
   float* l_s = m_s + G;
   float* c_s = l_s + G;
 
-  const int s = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long hrow = (long long)b * H + (long long)kv * G;
+  const long long hrow = (long long)b * H + (long long)kv * G_all +
+                         (long long)hg * GS;
   const int len = seq_lens[b];
   const int n_live = len > 0 ? min((len + page - 1) / page, n_pages) : 0;
   const int pg0 = s * pps;
@@ -97,13 +102,14 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     return;
   }
   const int pg1 = min(pg0 + pps, n_live);
-  const T* qb = q + hrow * DH;
+  const T* qb = q + hrow * dh;
   float qr[GB][NV];
 #pragma unroll
   for (int g = 0; g < GB; ++g)
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      qr[g][i] = g < G ? to_float(qb[g * DH + lane + 32 * i]) : 0.f;
+      qr[g][i] = g < G && lane + 32 * i < dh
+                     ? to_float(qb[g * dh + lane + 32 * i]) : 0.f;
   if (tid < G) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
@@ -111,19 +117,21 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float acc[GB];
 #pragma unroll
   for (int g = 0; g < GB; ++g) acc[g] = 0.f;
-  const long long tok = (long long)KV * DH;
+  const long long tok = (long long)KV * dh;
   const long long pstride = (long long)page * tok;
   __syncthreads();
 
   for (int pi = pg0; pi < pg1; ++pi) {
     const int phys = min(max(bt[(long long)b * n_pages + pi], 0), P - 1);
-    const T* kpg = kp + phys * pstride + (long long)kv * DH;
-    const T* vpg = vp + phys * pstride + (long long)kv * DH;
+    const T* kpg = kp + phys * pstride + (long long)kv * dh;
+    const T* vpg = vp + phys * pstride + (long long)kv * dh;
     const int p0 = pi * page;
     for (int t = warp; t < page; t += NWARPS) {
       float kr[NV];
 #pragma unroll
-      for (int i = 0; i < NV; ++i) kr[i] = to_float(kpg[t * tok + lane + 32 * i]);
+      for (int i = 0; i < NV; ++i)
+        kr[i] = lane + 32 * i < dh ? to_float(kpg[t * tok + lane + 32 * i])
+                                   : 0.f;
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g >= G) break;
@@ -156,7 +164,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
     }
     __syncthreads();
-    if (tid < DH) {
+    if (tid < dh) {      // the smoke's cases: dh <= 128 = THREADS
 #pragma unroll
       for (int g = 0; g < GB; ++g)
         if (g < G) acc[g] *= c_s[g];
@@ -173,7 +181,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     part_m[(hrow + tid) * n_splits + s] = m_s[tid];
     part_l[(hrow + tid) * n_splits + s] = l_s[tid];
   }
-  if (tid < DH) {
+  if (tid < dh) {
 #pragma unroll
     for (int g = 0; g < GB; ++g)
       if (g < G) part_acc[((hrow + g) * n_splits + s) * DH + tid] = acc[g];
@@ -278,11 +286,11 @@ def main():
     args = pool_inputs()
     n_pages = args[3].shape[1]
     fns = {
-        "kernel": lambda *a: kernel.launch_split(*a, entry=entry),
-        "stage1": lambda *a: kernel.launch_split(*a,
-                                                 entry=variants["stage1"]),
-        "single": lambda *a: kernel.launch_split(*a, plan=(a[3].shape[1], 1),
-                                                 entry=entry),
+        "kernel": lambda *a: kernel.launch_split(*a, entry=entry)[0],
+        "stage1": lambda *a: kernel.launch_split(
+            *a, entry=variants["stage1"])[0],
+        "single": lambda *a: kernel.launch_split(
+            *a, plan=(a[3].shape[1], 1), entry=entry)[0],
     }
     errs, shares = {}, {}
     want = paged_attention_ref(*args)
@@ -306,8 +314,8 @@ def main():
               flush=True)
     # not checked: the ring's loads alone (its output is not attention),
     # and one PyTorch reduction reading as many bytes as the live K and V
-    fns["stream"] = lambda *a: kernel.launch_split(*a,
-                                                   entry=variants["stream"])
+    fns["stream"] = lambda *a: kernel.launch_split(
+        *a, entry=variants["stream"])[0]
     nbytes = 2 * int(args[4].sum()) * KV * dh * args[1].element_size()
     ruler = torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
     fns["sum"] = lambda *a: ruler.sum(dtype=torch.float32)

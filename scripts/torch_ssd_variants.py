@@ -53,7 +53,7 @@ FP32_PRODUCTS = [
             const float* ca = Cs + (16 * mw + g) * CP;
             const float* bb = Bs + (16 * nw + 2 * t) * CP;
 #pragma unroll 4
-            for (int k = 0; k < ds; ++k) {
+            for (int k = 0; k < dsw; ++k) {       // the ds slice
               const float a0 = ca[k], a1 = ca[8 * CP + k];
 #pragma unroll
               for (int j = 0; j < 2; ++j)

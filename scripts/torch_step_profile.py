@@ -25,6 +25,7 @@ mixed group of the 7 non-ideal designs x 3 mixes (R = 21):
 Prints one JSON line per design, then the card's name and power limit.
 """
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -116,7 +117,8 @@ def main():
     import numpy as np
 
     import chip_smoke as cs
-    from repro_torch.core import design as pd
+    # the module: `repro_torch.core.design` is the `design` function
+    pd = importlib.import_module("repro_torch.core.design")
     from repro_torch.sim.config import SimConfig
     from repro_torch.sim.workloads import app_matrix
 

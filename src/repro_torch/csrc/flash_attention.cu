@@ -31,8 +31,20 @@
 //
 // The design:
 //  * One block of 4 warps per (q tile of 64 rows, head, batch); each warp
-//    owns 16 query rows. The grid's slowest axis walks the q tiles from
-//    the last, so the causal rows with the most keys start first.
+//    owns 16 query rows. The grid is one axis of q tiles x batch x heads,
+//    heads fastest (so no count of batches or q tiles meets the 65535
+//    limit of grid dims y and z), the q tiles from the last, so the causal
+//    rows with the most keys start first.
+//  * Instances by padded head width DHP, every multiple of 32 up to 256;
+//    a head of dh < DHP columns (dh a multiple of 4, so each 16-byte piece
+//    is whole) reads the columns past dh as zeros (cp.async's source size
+//    0), which add nothing to q.k and are not stored. The widths the
+//    models run (32, 64, 96, 128) have an exact instance too, which
+//    compiles no column checks. Up to DHP 128 q's
+//    fragments stay in registers; above, they would not fit next to the
+//    accumulator (128 registers at DHP 256), so the q tile waits in
+//    shared memory (pitch DHP + 16, as k's) and the fragments are loaded
+//    from there for each key tile.
 //  * Both products run on mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 in
 //    split TF32: each operand a = a_hi + a_lo with a_hi = tf32(a),
 //    a_lo = tf32(a - a_hi), rounded as cvt.rna.tf32.f32 rounds (two integer
@@ -61,12 +73,21 @@
 //    shared-memory ring, the next tile's copy under the current tile's
 //    products; rows past Sk are zero-filled (src-size 0). Row pitches of
 //    dh + 16 (k) and dh + 4 (v) floats keep the fragment loads free of
-//    bank conflicts. 70.7 KB a block at dh 128.
+//    bank conflicts. 70.7 KB a block at dh 128; with the q tile, 205.8
+//    KB at DHP 256.
+//
+// Resources (`-Xptxas -v`, build/repro_torch/flash_attention-*.log;
+// registers a thread, bytes of spill stores; exact / padded instance):
+// DH 32: 133 / 137, none; 64: 192 / 203, none; 96: 244 / 245, none; 128:
+// 255 / 255, 40 / 28 B; padded only: 160: 202, 192: 229, 224: 241, 256:
+// 243, none. Shared memory (Tile<DH>::SMEM): 2 x 32 x (DH + 16 + DH + 4)
+// x 4 B, plus the q tile, 64 x (DH + 16) x 4 B, past 128: 70.7 KB at 128,
+// 205.8 KB at 256.
 //
 // Layout: q, k, v, o are read and written through (batch, head, position)
 // strides with a contiguous head dimension, so the model's (B, S, H, dh)
 // tensors are used in place. Addresses and strides are multiples of 16
-// bytes (the wrapper checks). Ragged edges (lengths not a multiple of the
+// bytes (the wrapper checks, and stages other inputs). Ragged edges (lengths not a multiple of the
 // tiles) are handled: q rows past Sq are read as zero and not stored.
 
 #include <cuda_runtime.h>
@@ -87,10 +108,12 @@ struct Strides {
 
 template <int DH>
 struct Tile {
-  static constexpr int KP = DH + 16;   // k row pitch: 16 mod 32 floats
+  static constexpr bool QS = DH > 128; // q tile in shared memory
+  static constexpr int KP = DH + 16;   // k (and q) row pitch: 16 mod 32
   static constexpr int VP = DH + 4;    // v row pitch: 4 mod 32 floats
   static constexpr int STAGE = BK * (KP + VP);
-  static constexpr size_t SMEM = sizeof(float) * 2 * STAGE;
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * STAGE + (QS ? BQ * KP : 0));
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -166,14 +189,17 @@ __device__ __forceinline__ void mma3(float (&d)[N][4], const FragA& a,
   for (int j = 0; j < N; ++j) mma(d[j], a.hi, b0[j].hi, b1[j].hi);
 }
 
-template <int DH>
+// DH: the padded head width of the instance; PAD: the true head dh_rt may
+// be narrower (else it is DH, and the instance compiles no column checks)
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int G,
-                 int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-                 Strides os, int causal, int has_window, int window,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int B, int G, int Sq, int Sk, int dh_rt, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal,
+                 int has_window, int window, float scale) {
   using T = Tile<DH>;
+  const int dh = PAD ? dh_rt : DH;
   constexpr int NP = DH / 16;      // k-step pairs of q.k^T (16 columns)
   constexpr int NS = BK / 8;       // n-tiles of s = k-steps of p.v
   constexpr int NC = DH / 32;      // output column groups (4 n-tiles each)
@@ -182,8 +208,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;          // mma fragment coordinates
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q_start = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int q_start = (nqt - 1 - int(blockIdx.x / H) / B) * BQ;
   const int kvh = h / G;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + kvh * ks.h;
@@ -192,16 +219,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = q_start + warp * 16 + g, r1 = r0 + 8;   // this thread's rows
 
   // q: rows r0, r1, columns 16p + 4t .. 16p + 4t + 3; the first two are
-  // k-step 2p's slots t and t + 4, the last two k-step 2p + 1's
-  float4 qf[NP][2];
+  // k-step 2p's slots t and t + 4, the last two k-step 2p + 1's. In
+  // registers up to DH 128; above, the tile is copied to shared memory
+  // with the first k/v tile and the fragments read from there.
+  float4 qf[T::QS ? 1 : NP][2];
+  float* Qs = smem + 2 * T::STAGE;                  // QS: the q tile
+  if constexpr (T::QS) {
+    for (int c = tid; c < BQ * CPR; c += THREADS) {
+      const int r = c / CPR, col = (c % CPR) * 4;
+      const bool in = q_start + r < Sq && col < dh;
+      cp_async16(Qs + r * T::KP + col,
+                 in ? qb + (q_start + r) * qs.s + col : qb, in);
+    }
+  } else {
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int c = 16 * p + 4 * t;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    qf[p][0] = r0 < Sq ? *reinterpret_cast<const float4*>(qb + r0 * qs.s + c)
-                       : zero;
-    qf[p][1] = r1 < Sq ? *reinterpret_cast<const float4*>(qb + r1 * qs.s + c)
-                       : zero;
+    for (int p = 0; p < NP; ++p) {
+      const int c = 16 * p + 4 * t;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      qf[p][0] = r0 < Sq && c < dh
+                     ? *reinterpret_cast<const float4*>(qb + r0 * qs.s + c)
+                     : zero;
+      qf[p][1] = r1 < Sq && c < dh
+                     ? *reinterpret_cast<const float4*>(qb + r1 * qs.s + c)
+                     : zero;
+    }
   }
 
   // the visible key tiles, as the TPU kernel decides for its own tiles
@@ -219,10 +260,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = kt * BK;
     for (int c = tid; c < BK * CPR; c += THREADS) {
       const int r = c / CPR, col = (c % CPR) * 4;
-      const bool in = k0 + r < Sk;
+      const bool in = k0 + r < Sk && col < dh;
       const long long kr = in ? k0 + r : 0;     // src-size 0 reads nothing
-      cp_async16(Ks + r * T::KP + col, kb + kr * ks.s + col, in);
-      cp_async16(Vs + r * T::VP + col, vb + kr * vs.s + col, in);
+      const int cc = in ? col : 0;
+      cp_async16(Ks + r * T::KP + col, kb + kr * ks.s + cc, in);
+      cp_async16(Vs + r * T::VP + col, vb + kr * vs.s + cc, in);
     }
   };
 
@@ -258,7 +300,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
-      const float4 x = qf[p][0], y = qf[p][1];
+      float4 x, y;
+      if constexpr (T::QS) {
+        const float* qr = Qs + (warp * 16 + g) * T::KP + 16 * p + 4 * t;
+        x = *reinterpret_cast<const float4*>(qr);
+        y = *reinterpret_cast<const float4*>(qr + 8 * T::KP);
+      } else {
+        x = qf[p][0];
+        y = qf[p][1];
+      }
       float4 kk[NS];
 #pragma unroll
       for (int n = 0; n < NS; ++n)
@@ -347,6 +397,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();                  // the stage is read before its refill
   }
+  if constexpr (T::QS) cp_wait<0>();  // no tile visible: q's copy is unread
 
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
@@ -358,60 +409,83 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const float(&a)[4][4] = acc[c];
-    const int col = 32 * c + 8 * t;
+    const int col = 32 * c + 8 * t;        // columns col .. col + 7
+    if (col >= dh) continue;               // dh is a multiple of 4
+    const bool two = col + 4 < dh;
     if (r0 < Sq) {
       float* dst = ob + r0 * os.s + col;
       *reinterpret_cast<float4*>(dst) = make_float4(
           a[0][0] / l0, a[1][0] / l0, a[2][0] / l0, a[3][0] / l0);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(
-          a[0][1] / l0, a[1][1] / l0, a[2][1] / l0, a[3][1] / l0);
+      if (two)
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(
+            a[0][1] / l0, a[1][1] / l0, a[2][1] / l0, a[3][1] / l0);
     }
     if (r1 < Sq) {
       float* dst = ob + r1 * os.s + col;
       *reinterpret_cast<float4*>(dst) = make_float4(
           a[0][2] / l1, a[1][2] / l1, a[2][2] / l1, a[3][2] / l1);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(
-          a[0][3] / l1, a[1][3] / l1, a[2][3] / l1, a[3][3] / l1);
+      if (two)
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(
+            a[0][3] / l1, a[1][3] / l1, a[2][3] / l1, a[3][3] / l1);
     }
   }
 }
 
-template <int DH>
+template <int DH, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int has_window, int window, float scale,
-           cudaStream_t stream) {
+           int H, int KV, int Sq, int Sk, int dh, Strides qs, Strides ks,
+           Strides vs, Strides os, int causal, int has_window, int window,
+           float scale, cudaStream_t stream) {
   // set on every launch: the attribute is per device, and cheap next to
   // the kernel
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(Tile<DH>::SMEM));
+      flash_fwd_kernel<DH, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile<DH>::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<DH><<<grid, THREADS, Tile<DH>::SMEM, stream>>>(
+  // one axis: (q tile, batch, head), the head fastest
+  const unsigned grid = unsigned((Sq + BQ - 1) / BQ) * unsigned(B) * H;
+  flash_fwd_kernel<DH, PAD><<<grid, THREADS, Tile<DH>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / KV, Sq, Sk,
-      qs, ks, vs, os, causal, has_window, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), H, B, H / KV, Sq,
+      Sk, dh, qs, ks, vs, os, causal, has_window, window, scale);
   return int(cudaGetLastError());
+}
+
+// the instances of width DHP: an exact one (dh == DHP) for the widths up
+// to 128 that the models run, a padded one for every width
+template <int DHP>
+int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int KV, int Sq, int Sk, int dh, Strides qs, Strides ks,
+              Strides vs, Strides os, int causal, int has_window, int window,
+              float scale, cudaStream_t stream) {
+  if constexpr (DHP <= 128) {
+    if (dh == DHP)
+      return launch<DHP, false>(q, k, v, o, B, H, KV, Sq, Sk, dh, qs, ks,
+                                vs, os, causal, has_window, window, scale,
+                                stream);
+  }
+  return launch<DHP, true>(q, k, v, o, B, H, KV, Sq, Sk, dh, qs, ks, vs, os,
+                           causal, has_window, window, scale, stream);
 }
 
 int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
                 int B, int H, int KV, int Sq, int Sk, Strides qs, Strides ks,
                 Strides vs, Strides os, int causal, int has_window,
                 int window, float scale, cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                        causal, has_window, window, scale, stream);
-    case 64:
-      return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                        causal, has_window, window, scale, stream);
-    case 96:
-      return launch<96>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                        causal, has_window, window, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                         causal, has_window, window, scale, stream);
+  switch ((dh + 31) / 32 * 32) {
+#define FLASH_FP32_CASE(DHP)                                                \
+  case DHP:                                                                 \
+    return launch_dh<DHP>(q, k, v, o, B, H, KV, Sq, Sk, dh, qs, ks, vs, os, \
+                          causal, has_window, window, scale, stream);
+    FLASH_FP32_CASE(32)
+    FLASH_FP32_CASE(64)
+    FLASH_FP32_CASE(96)
+    FLASH_FP32_CASE(128)
+    FLASH_FP32_CASE(160)
+    FLASH_FP32_CASE(192)
+    FLASH_FP32_CASE(224)
+    FLASH_FP32_CASE(256)
+#undef FLASH_FP32_CASE
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -421,6 +495,7 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 
 // q: (B, H, Sq, dh), k/v: (B, KV, Sk, dh), o like q, each addressed through
 // its (b, h, s) strides in elements with a contiguous head dim, float32;
+// dh a multiple of 4 up to 256, run by the instance of dh rounded up to 32;
 // addresses and strides multiples of 16 bytes. Returns a cudaError_t
 // (0 = launched).
 extern "C" int flash_attention_fwd(
@@ -430,8 +505,8 @@ extern "C" int flash_attention_fwd(
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, int causal, int has_window, int window,
     float scale, void* stream) {
-  if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || B > 65535 ||
-      (Sq + BQ - 1) / BQ > 65535)
+  if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || dh < 4 || dh > 256 ||
+      dh % 4 || (long long)((Sq + BQ - 1) / BQ) * B * H > 2147483647LL)
     return int(cudaErrorInvalidValue);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};

@@ -64,6 +64,19 @@
 //   tile starts at its first visible k tile.
 // - The epilogue multiplies by 1 / max(l, 1e-30), rounds to bf16 and
 //   stores pairs through o's strides.
+// - Heads past 128 columns (instances 192 and 256) take K/V tiles of 64
+//   keys: with 128-key tiles Q and two stages of K and V would need
+//   (1 + 2 x 2) x 4 x 16 KB = 320 KB of shared memory at 256 columns, and
+//   S's 64 registers beside a 128-register accumulator would not fit a
+//   consumer's 240. P.V past 128 columns is two wgmmas on the two halves
+//   of the accumulator (128 + 64, or 128 + 128 columns).
+//
+// Resources (`-Xptxas -v`, build/repro_torch/flash_attention_sm90-*.log):
+// every instance <DHP, BK> (<64, 128>, <128, 128>, <192, 64>, <256, 64>)
+// is allocated 168 registers a thread at launch (384 threads, one CTA an
+// SM; setmaxnreg moves them to the consumers), no stack, no spill.
+// Dynamic shared memory, Q + 2 stages of K and V + 1 KB of alignment:
+// 82,944 B (64), 164,864 B (128), 148,480 B (192), 197,632 B (256).
 
 #include <cuda.h>            // CUtensorMap and its enums; the encode
 #include <cuda_bf16.h>       // function is looked up through the runtime,
@@ -74,9 +87,8 @@
 namespace {
 
 constexpr int BQ = 128;               // query rows per CTA, 64 per consumer
-constexpr int BK = 128;               // keys per tile
 constexpr int BOX_COLS = 64;          // a TMA box row: 128 bytes of bf16
-constexpr int BOX_BYTES = 128 * 128;  // a box: 128 rows of 128 bytes
+constexpr int BOX_BYTES = BQ * 128;   // a Q box: 128 rows of 128 bytes
 constexpr int STAGES = 2;             // K/V ring depth
 constexpr int THREADS = 384;          // producer + 2 consumer warpgroups
 constexpr int CONSUMER_THREADS = 256;
@@ -215,6 +227,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -267,38 +300,62 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// the N accumulators of d from index `at` on, as an array of their own
+template <int N, int M>
+__device__ __forceinline__ float (&part(float (&d)[M], int at))[N] {
+  return *reinterpret_cast<float(*)[N]>(&d[at]);
+}
+
+// acc (64 x DHP) += P (64 x 16 keys, registers) . V (16 keys x DHP, the
+// boxes of 64 columns `lbo` bytes apart from `addr`): one wgmma up to 128
+// columns, two for 192 (128 + 64) and 256 (128 + 128)
 template <int DHP>
 __device__ __forceinline__ void wgmma_pv(float (&d)[DHP / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(d, a, db, 1);
+                                         const uint32_t (&a)[4],
+                                         uint32_t addr, uint32_t lbo) {
+  if constexpr (DHP == 64) {
+    wgmma_rs_n64(d, a, sw128_desc(addr, lbo, 1024), 1);
+  } else if constexpr (DHP == 128) {
+    wgmma_rs_n128(d, a, sw128_desc(addr, lbo, 1024), 1);
+  } else {
+    wgmma_rs_n128(part<64>(d, 0), a, sw128_desc(addr, lbo, 1024), 1);
+    if constexpr (DHP == 192)
+      wgmma_rs_n64(part<32>(d, 64), a, sw128_desc(addr + 2 * lbo, lbo, 1024),
+                   1);
+    if constexpr (DHP == 256)
+      wgmma_rs_n128(part<64>(d, 64), a,
+                    sw128_desc(addr + 2 * lbo, lbo, 1024), 1);
+  }
 }
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(d, a, db, 1);
+
+// S (64 x BK keys) = Q . K^T, K-major tiles of BK rows
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BK == 128)
+    wgmma_ss_n128(d, da, db, scale_d);
+  else
+    wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // S = Q . K^T for the consumer's 64 rows over the head dim, 16 columns a
-// step; issued, not waited for
-template <int DHP>
+// step; issued, not waited for. A K box is BK rows of 128 bytes.
+template <int DHP, int BK>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_rows,
                                         uint32_t k_tile) {
+  constexpr uint32_t KBOX = BK * 128;
 #pragma unroll
   for (int kk = 0; kk < DHP / 16; ++kk) {
-    const uint32_t step = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss_n128(s, sw128_desc(q_rows + step, 16, 1024),
-                  sw128_desc(k_tile + step, 16, 1024), kk > 0);
+    const uint32_t step = (kk % 4) * 32;
+    wgmma_qk<BK>(s, sw128_desc(q_rows + (kk / 4) * BOX_BYTES + step, 16, 1024),
+                 sw128_desc(k_tile + (kk / 4) * KBOX + step, 16, 1024),
+                 kk > 0);
   }
   wgmma_commit();
 }
 
 // acc += P . V over the tile's keys, 16 a step; issued, not waited for
-template <int DHP>
+template <int DHP, int BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[DHP / 2],
                                         const uint32_t (&p)[BK / 4],
                                         uint32_t v_tile) {
@@ -306,8 +363,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DHP / 2],
   for (int kc = 0; kc < BK / 16; ++kc) {
     const uint32_t a[4] = {p[4 * kc], p[4 * kc + 1], p[4 * kc + 2],
                            p[4 * kc + 3]};
-    wgmma_pv<DHP>(acc, a,
-                  sw128_desc(v_tile + kc * 16 * 128, BOX_BYTES, 1024));
+    wgmma_pv<DHP>(acc, a, v_tile + kc * 16 * 128, BK * 128);
   }
   wgmma_commit();
 }
@@ -322,6 +378,7 @@ struct Mask {
 // and l move on, corr is exp2(m_old - m_new) per row. m never falls below
 // MASKED, so it is never -inf. Tiles that no mask touches (`edge` false)
 // fold the scale into one FFMA per score.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
     bool edge, int k0, int qrow, int col, const Mask& mk, float scale_log2) {
@@ -384,6 +441,7 @@ struct Work {
   int q0, h, b, kt_lo, ntiles;
 };
 
+template <int BK>
 __device__ __forceinline__ Work work_tile(int w, int H, int B, int nqt,
                                           int Sk, int causal, int has_window,
                                           int window) {
@@ -398,12 +456,15 @@ __device__ __forceinline__ Work work_tile(int w, int H, int B, int nqt,
   return t;
 }
 
-// DHP: the head dim as tiled, 64 or 128 (a head of 32 is read as 64, one
-// of 96 as 128).
+// DHP: the head dim as tiled, 64, 128, 192 or 256 (a narrower head is
+// read through the next one up, its extra columns zero-filled by TMA); BK:
+// keys per K/V tile, 128, or 64 at DHP 192 and 256, where 128-key tiles
+// would take more shared memory than a block has, and S next to the wide
+// accumulator more registers.
 // Persistent: each CTA walks the work tiles blockIdx.x, + gridDim.x, ...;
 // the K/V ring runs on across tiles, and the next tile's Q loads while the
 // consumers finish the last one's products and store its output.
-template <int DHP>
+template <int DHP, int BK>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -412,14 +473,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    int G, int Sq, int Sk, int dh, int causal, int has_window,
                    int window, float scale_log2) {
   constexpr int NB = DHP / BOX_COLS;       // boxes per tile
-  constexpr int TILE = NB * BOX_BYTES;     // bytes of a Q, K or V tile
+  constexpr int QTILE = NB * BOX_BYTES;    // bytes of a Q tile
+  constexpr int KBOX = BK * 128;           // bytes of a K or V box
+  constexpr int TILE = NB * KBOX;          // bytes of a K or V tile
   extern __shared__ uint8_t smem_raw[];
   // Q full, Q free; per stage K full, V full, K free, V free
   __shared__ __align__(8) uint64_t bars[2 + 4 * STAGES];
 
   // swizzle atoms must start on a 1 KB boundary
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t k_s = q_s + TILE;                   // stage i: + i * TILE
+  const uint32_t k_s = q_s + QTILE;                  // stage i: + i * TILE
   const uint32_t v_s = k_s + STAGES * TILE;
   const uint32_t bar_q = smem_u32(&bars[0]);
   const uint32_t bar_qfree = bar_q + 8;
@@ -449,10 +512,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 0) {
       int it = 0;                            // k tiles loaded so far
       for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-        const Work t = work_tile(w, H, B, nqt, Sk, causal, has_window,
-                                 window);
+        const Work t = work_tile<BK>(w, H, B, nqt, Sk, causal, has_window,
+                                     window);
         mbar_wait(bar_qfree, (n & 1) ^ 1);   // the last tile's Q is read
-        mbar_expect_tx(bar_q, TILE);
+        mbar_expect_tx(bar_q, QTILE);
         for (int j = 0; j < NB; ++j)
           tma_load(q_s + j * BOX_BYTES, &qmap, bar_q, j * BOX_COLS, t.q0,
                    t.h, t.b);
@@ -463,12 +526,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           mbar_wait(bar_kfree + 8 * st, free_phase);
           mbar_expect_tx(bar_k + 8 * st, TILE);
           for (int j = 0; j < NB; ++j)
-            tma_load(k_s + st * TILE + j * BOX_BYTES, &kmap, bar_k + 8 * st,
+            tma_load(k_s + st * TILE + j * KBOX, &kmap, bar_k + 8 * st,
                      j * BOX_COLS, k0, t.h / G, t.b);
           mbar_wait(bar_vfree + 8 * st, free_phase);
           mbar_expect_tx(bar_v + 8 * st, TILE);
           for (int j = 0; j < NB; ++j)
-            tma_load(v_s + st * TILE + j * BOX_BYTES, &vmap, bar_v + 8 * st,
+            tma_load(v_s + st * TILE + j * KBOX, &vmap, bar_v + 8 * st,
                      j * BOX_COLS, k0, t.h / G, t.b);
         }
       }
@@ -489,7 +552,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     int it = 0;                              // k tiles consumed so far
     for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-      const Work t = work_tile(w, H, B, nqt, Sk, causal, has_window, window);
+      const Work t = work_tile<BK>(w, H, B, nqt, Sk, causal, has_window,
+                                   window);
       const int r0 = t.q0 + 64 * c;          // the consumer's first row
       // a tile needs the mask where it crosses the diagonal, the window's
       // edge or Sk for any of the consumer's rows
@@ -510,13 +574,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(bar_k + 8 * st, (it / STAGES) & 1);
         reg_fence(s);
         wgmma_fence();
-        issue_qk<DHP>(s, q_rows, k_s + st * TILE);
+        issue_qk<DHP, BK>(s, q_rows, k_s + st * TILE);
         wgmma_wait<0>();
         reg_fence(s);
         mbar_arrive(bar_kfree + 8 * st);
         if (t.ntiles == 1) mbar_arrive(bar_qfree);
-        softmax_tile(s, m, l, corr, edge(k0), k0, r0 + row, col, mk,
-                     scale_log2);
+        softmax_tile<BK>(s, m, l, corr, edge(k0), k0, r0 + row, col, mk,
+                         scale_log2);
 #pragma unroll
         for (int i = 0; i < BK / 4; ++i)
           p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
@@ -532,15 +596,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           reg_fence(acc);
           reg_fence(p);
           wgmma_fence();
-          issue_qk<DHP>(s, q_rows, k_s + st * TILE);
+          issue_qk<DHP, BK>(s, q_rows, k_s + st * TILE);
           mbar_wait(bar_v + 8 * pst, pph);
-          issue_pv<DHP>(acc, p, v_s + pst * TILE);
+          issue_pv<DHP, BK>(acc, p, v_s + pst * TILE);
           wgmma_wait<1>();                   // the scores are in
           reg_fence(s);
           mbar_arrive(bar_kfree + 8 * st);
           if (i == t.ntiles - 1) mbar_arrive(bar_qfree);
-          softmax_tile(s, m, l, corr, edge(k0), k0, r0 + row, col, mk,
-                       scale_log2);
+          softmax_tile<BK>(s, m, l, corr, edge(k0), k0, r0 + row, col, mk,
+                           scale_log2);
           wgmma_wait<0>();                   // P.V of tile i-1 is in
           reg_fence(acc);
           reg_fence(p);
@@ -560,7 +624,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         reg_fence(acc);
         reg_fence(p);
         wgmma_fence();
-        issue_pv<DHP>(acc, p, v_s + st * TILE);
+        issue_pv<DHP, BK>(acc, p, v_s + st * TILE);
         wgmma_wait<0>();
         reg_fence(acc);
         mbar_arrive(bar_vfree + 8 * st);
@@ -621,15 +685,16 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (dh, S, heads, B) over the tensor's strides, boxes of 64 x 128 rows,
-// 128-byte swizzle; rows past S (and columns past dh) are filled with zeros
+// (dh, S, heads, B) over the tensor's strides, boxes of 64 columns x
+// `rows`, 128-byte swizzle; rows past S (and columns past dh) are filled
+// with zeros
 CUresult encode(CUtensorMap* map, const void* ptr, int dh, int S, int heads,
-                int B, Strides st) {
+                int B, Strides st, int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(S),
                               cuuint64_t(heads), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2,
                                  cuuint64_t(st.b) * 2};
-  const cuuint32_t box[4] = {BOX_COLS, 128, 1, 1};
+  const cuuint32_t box[4] = {BOX_COLS, cuuint32_t(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(ptr), dims, strides, box, unit,
@@ -638,15 +703,17 @@ CUresult encode(CUtensorMap* map, const void* ptr, int dh, int S, int heads,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DHP>
+template <int DHP, int BK>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
            const CUtensorMap& vm, void* o, int B, int H, int KV, int Sq,
            int Sk, int dh, Strides os, int causal, int has_window, int window,
            float scale, cudaStream_t stream) {
-  const int smem = (1 + 2 * STAGES) * (DHP / BOX_COLS) * BOX_BYTES + 1024;
+  // Q, then STAGES K and V tiles, and room to align to 1 KB
+  const int smem = (DHP / BOX_COLS) * (BOX_BYTES + 2 * STAGES * BK * 128) +
+                   1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_wgmma_kernel<DHP, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -655,7 +722,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (err != cudaSuccess) return int(err);
   const long long n_work = (long long)((Sq + BQ - 1) / BQ) * H * B;
   const int grid = int(n_work < sms ? n_work : sms);   // one CTA per SM
-  flash_wgmma_kernel<DHP><<<grid, THREADS, smem, stream>>>(
+  flash_wgmma_kernel<DHP, BK><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), os, H, B, H / KV, Sq, Sk,
       dh, causal, has_window, window, scale * LOG2E);
   return int(cudaGetLastError());
@@ -665,9 +732,11 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 
 // q: (B, H, Sq, dh), k/v: (B, KV, Sk, dh), o like q, bfloat16, each
 // addressed through its (b, h, s) strides in elements with a contiguous head
-// dim; pointers and q/k/v strides 16-byte aligned (TMA's rule, checked by
-// the caller). Returns a cudaError_t (0 = launched), or 1000 + the CUresult
-// of a tensor map that could not be encoded.
+// dim; dh a multiple of 8 up to 256; pointers and q/k/v strides 16-byte
+// aligned (TMA's rule, checked by the caller, which stages other inputs).
+// The instance: DHP the first of 64, 128, 192, 256 at or above dh.
+// Returns a cudaError_t (0 = launched), or 1000 + the CUresult of a tensor
+// map that could not be encoded.
 extern "C" int flash_attention_sm90_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int Sq, int Sk, int dh, long long qsb, long long qsh,
@@ -678,21 +747,27 @@ extern "C" int flash_attention_sm90_fwd(
   if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 ||
       (long long)((Sq + BQ - 1) / BQ) * H * B > 2147483647LL)
     return int(cudaErrorInvalidValue);
-  if (dh != 32 && dh != 64 && dh != 96 && dh != 128)
-    return int(cudaErrorInvalidValue);
+  if (dh < 8 || dh > 256 || dh % 8) return int(cudaErrorInvalidValue);
   if (!encoder()) return int(cudaErrorSymbolNotFound);
+  const int bk = dh <= 128 ? 128 : 64;       // keys per K/V tile
   CUtensorMap qm, km, vm;
-  CUresult res = encode(&qm, q, dh, Sq, H, B, Strides{qsb, qsh, qss});
+  CUresult res = encode(&qm, q, dh, Sq, H, B, Strides{qsb, qsh, qss}, BQ);
   if (res == CUDA_SUCCESS)
-    res = encode(&km, k, dh, Sk, KV, B, Strides{ksb, ksh, kss});
+    res = encode(&km, k, dh, Sk, KV, B, Strides{ksb, ksh, kss}, bk);
   if (res == CUDA_SUCCESS)
-    res = encode(&vm, v, dh, Sk, KV, B, Strides{vsb, vsh, vss});
+    res = encode(&vm, v, dh, Sk, KV, B, Strides{vsb, vsh, vss}, bk);
   if (res != CUDA_SUCCESS) return 1000 + int(res);
   const Strides os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh <= 64)
-    return launch<64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                      has_window, window, scale, st);
-  return launch<128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                     has_window, window, scale, st);
+    return launch<64, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
+                           has_window, window, scale, st);
+  if (dh <= 128)
+    return launch<128, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
+                            has_window, window, scale, st);
+  if (dh <= 192)
+    return launch<192, 64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
+                           has_window, window, scale, st);
+  return launch<256, 64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
+                         has_window, window, scale, st);
 }

@@ -8,7 +8,9 @@
 // the ideal design) and once more for the page-walk cache under the pwc
 // design (64 x 16, 120 lanes in 4 waves). Both rounds are tag-only. A grid
 // of R simulations (`run_grid`'s rows) runs R independent rounds, one per
-// row, in the same launch.
+// row, in the same launch. The lanes are the simulator's (L + K) x n_cores
+// requests, so a configuration of more cores (132 cores: 1056 lanes) runs
+// the wide instances below.
 //
 // What bounds it: an L2 round reads about 30 KB of table rows and writes a
 // few hundred words. At 3.35 TB/s that is ~10 ns of memory traffic and far
@@ -25,6 +27,16 @@
 //    it may fill, its LRU row, all at once, with four 16-byte loads each,
 //    and compares in registers. The LRU row stays in registers, so the
 //    victim's rank (16 x 16 compares) touches no memory.
+//  * Those instances take one lane a thread (LPT = 1), up to 1024 lanes.
+//    A round of more lanes runs the wide instances (LPT = LPT_WIDE): 1024
+//    threads, thread t taking lanes t, t + 1024, ..., each phase a loop
+//    over the thread's lanes with their state in registers; the 16-way
+//    wide instance loads a winner's LRU row in phase 3, not beside its tag
+//    row, so that no lane keeps 16 LRU words across the barriers. Past
+//    8192 lanes the owner hash and lane tables outgrow shared memory.
+//  * Rows are read by 16-byte loads only by the 16-way instances, which
+//    the wrapper picks for planes whose every row is 16-byte aligned; the
+//    run-time-width instances read words, so any row layout works.
 //  * Block r offsets its plane and lane pointers by row r; the cross-lane
 //    tables are the block's own. They live in shared memory: the per-(set, wave) fill
 //    ports (only the rows of sets that have a candidate are initialised,
@@ -32,6 +44,12 @@
 //    write owners, in a hash table of the <= N targeted slots (open
 //    addressing, 2N to 4N entries), so nothing per call is allocated in
 //    device memory.
+// Resources (`-Xptxas -v`, build/repro_torch/fused_tlb-*.log): <16, 1>
+// 62 registers and <0, 1> 32, no spill, as before the wide instances;
+// <16, 8> and <0, 8> 64 (the cap of 1024 threads) with 384 and 322 bytes
+// of spill stores: the wide rounds pay for their lanes' state in local
+// memory (on the H100, chip_smoke.py phase 20: 13.84 us for 1056 lanes
+// against ~3 us for 240).
 // Fusing rounds of many cycles into one launch (a CUDA graph per cycle) is
 // the way past the launch floor, and is left to a later change.
 //
@@ -60,7 +78,8 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;   // one thread per lane, one block a row
+constexpr int MAX_THREADS = 1024;   // one block a row
+constexpr int LPT_WIDE = 8;         // lanes a thread of the wide instances
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 constexpr int MAX_DEVICES = 64;     // devices whose limits are cached
 
@@ -137,7 +156,9 @@ __device__ int rank_select_rt(const int* lrow, int n, int want) {
   return 0;
 }
 
-template <int NW>
+// NW: the compiled way count (0: read at run time); LPT: lanes a thread
+// at most (1, or LPT_WIDE for rounds of more than 1024 lanes)
+template <int NW, int LPT>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_tlb_kernel(int* tags, int* asids, int* lru,
                  const int* __restrict__ vpn, const int* __restrict__ asid,
@@ -169,111 +190,145 @@ fused_tlb_kernel(int* tags, int* asids, int* lru,
   hit_out += lane_off;
   filled_out += lane_off;
 
-  const int i = threadIdx.x;
-  const bool lane = i < n;
-  for (int k = i; k < n_hash; k += blockDim.x) {
+  for (int k = threadIdx.x; k < n_hash; k += blockDim.x) {
     s_key[k] = -1;
     s_own[k] = -1;
   }
 
+  // this thread's lanes: lane(j) = threadIdx.x + j * blockDim.x, j < LPT
+  auto lane_of = [&](int j) { return int(threadIdx.x) + j * int(blockDim.x); };
+
   // ---- 1. pre-probe ------------------------------------------------------
-  int v = 0, a = 0, set = 0, way = -1;
-  bool act = false, pre_hit = false, cand = false;
-  int lrow[NW ? NW : 1];                  // the LRU row in registers
-  if (lane) {
-    v = vpn[i];
-    act = active[i];
-    if (act) {
-      a = track ? asid[i] : 0;
-      set = n_sets > 1 ? floor_mod(v, n_sets) : 0;
-      const int row = set * n_ways;
-      const bool may = may_fill[i];
-      if constexpr (NW > 0) {
-        if (may) load_row<NW>(lrow, lru + row);   // beside the tag row
+  int v[LPT], a[LPT], set[LPT], way[LPT];
+  bool act[LPT], pre_hit[LPT], cand[LPT];
+  int lrow[NW && LPT == 1 ? NW : 1];      // the LRU row in registers
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int i = lane_of(j);
+    v[j] = 0;
+    a[j] = 0;
+    set[j] = 0;
+    way[j] = -1;
+    act[j] = pre_hit[j] = cand[j] = false;
+    if (i < n) {
+      v[j] = vpn[i];
+      act[j] = active[i];
+      if (act[j]) {
+        a[j] = track ? asid[i] : 0;
+        set[j] = n_sets > 1 ? floor_mod(v[j], n_sets) : 0;
+        const int row = set[j] * n_ways;
+        const bool may = may_fill[i];
+        if constexpr (NW > 0 && LPT == 1) {
+          if (may) load_row<NW>(lrow, lru + row);   // beside the tag row
+        }
+        way[j] = first_match<NW>(tags + row, asids + row, n_ways, v[j], a[j],
+                                 track);
+        pre_hit[j] = way[j] >= 0;
+        cand[j] = !pre_hit[j] && may;
+        if (cand[j])
+          for (int w = 0; w < n_waves; ++w) s_port[set[j] * n_waves + w] = n;
       }
-      way = first_match<NW>(tags + row, asids + row, n_ways, v, a, track);
-      pre_hit = way >= 0;
-      cand = !pre_hit && may;
-      if (cand)
-        for (int w = 0; w < n_waves; ++w) s_port[set * n_waves + w] = n;
+      s_vpn[i] = v[j];
+      s_cand[i] = cand[j];
     }
-    s_vpn[i] = v;
-    s_cand[i] = cand;
   }
   __syncthreads();
 
   // ---- 2. duplicate suppression + fill port ------------------------------
   const int C = n / n_waves;
-  const int wave = i / C;
-  if (cand) {
-    const int c = i - wave * C;
-    for (int w = 0; w < wave; ++w) {
-      const int j = w * C + c;
-      if (s_cand[j] && s_vpn[j] == v) {
-        cand = false;
-        break;
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int i = lane_of(j);
+    if (cand[j]) {
+      const int wave = i / C;
+      const int c = i - wave * C;
+      for (int w = 0; w < wave; ++w) {
+        const int l = w * C + c;
+        if (s_cand[l] && s_vpn[l] == v[j]) {
+          cand[j] = false;
+          break;
+        }
       }
+      if (cand[j]) atomicMin(&s_port[set[j] * n_waves + wave], i);
     }
-    if (cand) atomicMin(&s_port[set * n_waves + wave], i);
   }
   __syncthreads();
 
   // ---- 3. winner, rank, victim; write ownership --------------------------
-  bool winner = false;
-  int target = -1;
-  if (pre_hit) {
-    target = set * n_ways + way;
-  } else if (cand) {
-    const int* prow = s_port + set * n_waves;
-    int rank = 0;
-    for (int w = 0; w < wave; ++w) rank += prow[w] < n;
-    winner = prow[wave] == i && rank < n_ways;
-    if (winner) {
-      int victim;
-      if constexpr (NW > 0)
-        victim = rank_select<NW>(lrow, rank);
-      else
-        victim = rank_select_rt(lru + set * n_ways, n_ways, rank);
-      target = set * n_ways + victim;
+  bool winner[LPT];
+  int target[LPT], h[LPT];
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int i = lane_of(j);
+    winner[j] = false;
+    target[j] = -1;
+    if (pre_hit[j]) {
+      target[j] = set[j] * n_ways + way[j];
+    } else if (cand[j]) {
+      const int wave = i / C;
+      const int* prow = s_port + set[j] * n_waves;
+      int rank = 0;
+      for (int w = 0; w < wave; ++w) rank += prow[w] < n;
+      winner[j] = prow[wave] == i && rank < n_ways;
+      if (winner[j]) {
+        int victim;
+        if constexpr (NW > 0 && LPT == 1) {
+          victim = rank_select<NW>(lrow, rank);
+        } else if constexpr (NW > 0) {
+          int lr[NW];                        // unchanged until phase 4
+          load_row<NW>(lr, lru + set[j] * n_ways);
+          victim = rank_select<NW>(lr, rank);
+        } else {
+          victim = rank_select_rt(lru + set[j] * n_ways, n_ways, rank);
+        }
+        target[j] = set[j] * n_ways + victim;
+      }
     }
-  }
-  int h = 0;
-  if (target >= 0) {        // the slot's hash entry: the highest lane wins
-    h = int((unsigned(target) * 2654435761u) >> (32 - hash_bits));
-    for (;;) {
-      const int prev = atomicCAS(&s_key[h], -1, target);
-      if (prev == -1 || prev == target) break;
-      h = (h + 1) & (n_hash - 1);
+    h[j] = 0;
+    if (target[j] >= 0) {   // the slot's hash entry: the highest lane wins
+      h[j] = int((unsigned(target[j]) * 2654435761u) >> (32 - hash_bits));
+      for (;;) {
+        const int prev = atomicCAS(&s_key[h[j]], -1, target[j]);
+        if (prev == -1 || prev == target[j]) break;
+        h[j] = (h[j] + 1) & (n_hash - 1);
+      }
+      atomicMax(&s_own[h[j]], i);
     }
-    atomicMax(&s_own[h], i);
   }
   __syncthreads();
 
   // ---- 4. merged in-place update -----------------------------------------
-  if (target >= 0 && s_own[h] == i) {
-    tags[target] = v;
-    lru[target] = time;
-    if (track) asids[target] = a;
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    if (target[j] >= 0 && s_own[h[j]] == lane_of(j)) {
+      tags[target[j]] = v[j];
+      lru[target[j]] = time;
+      if (track) asids[target[j]] = a[j];
+    }
   }
   __syncthreads();
 
   // ---- 5. post-probe: forwarding from the filled table -------------------
-  if (lane) {
-    bool post = false;
-    if (act && !pre_hit && !winner) {
-      const int row = set * n_ways;
-      post = first_match<NW>(tags + row, asids + row, n_ways, v, a,
-                             track) >= 0;
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int i = lane_of(j);
+    if (i < n) {
+      bool post = false;
+      if (act[j] && !pre_hit[j] && !winner[j]) {
+        const int row = set[j] * n_ways;
+        post = first_match<NW>(tags + row, asids + row, n_ways, v[j], a[j],
+                               track) >= 0;
+      }
+      hit_out[i] = pre_hit[j] || post;
+      filled_out[i] = winner[j];
     }
-    hit_out[i] = pre_hit || post;
-    filled_out[i] = winner;
   }
 }
 
 // Raises the instance's dynamic shared-memory limit to `smem` on the
 // current device where an earlier launch there has not: the attribute is
 // set once per instance, device and size, not on every launch.
-template <int NW>
+template <int NW, int LPT>
 int allow_smem(size_t smem) {
   static std::atomic<size_t> allowed[MAX_DEVICES];   // 0: the default
   int dev = 0;
@@ -282,7 +337,7 @@ int allow_smem(size_t smem) {
   if (smem <= DEFAULT_SMEM ||
       (dev < MAX_DEVICES && smem <= allowed[dev].load()))
     return 0;
-  err = cudaFuncSetAttribute(fused_tlb_kernel<NW>,
+  err = cudaFuncSetAttribute(fused_tlb_kernel<NW, LPT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
   if (err != cudaSuccess) return int(err);
@@ -294,16 +349,16 @@ int allow_smem(size_t smem) {
   return 0;
 }
 
-template <int NW>
+template <int NW, int LPT>
 int launch(int* tags, int* asids, int* lru, const int* vpn, const int* asid,
            const bool* active, const bool* may_fill, int* hit, int* filled,
            int n_rows, int n_sets, int n_ways, int n, int n_waves,
            int track_asids, int time, int hash_bits, size_t smem,
            cudaStream_t stream) {
-  const int err = allow_smem<NW>(smem);
+  const int err = allow_smem<NW, LPT>(smem);
   if (err != 0) return err;
-  const int threads = ((n + 31) / 32) * 32;
-  fused_tlb_kernel<NW><<<n_rows, threads, smem, stream>>>(
+  const int threads = LPT == 1 ? ((n + 31) / 32) * 32 : MAX_THREADS;
+  fused_tlb_kernel<NW, LPT><<<n_rows, threads, smem, stream>>>(
       tags, asids, lru, vpn, asid, active, may_fill, hit, filled, n_sets,
       n_ways, n, n_waves, track_asids, time, hash_bits);
   return int(cudaGetLastError());
@@ -312,10 +367,12 @@ int launch(int* tags, int* asids, int* lru, const int* vpn, const int* asid,
 }  // namespace
 
 // C entry for ctypes. `instance` is the way count of the compiled instance
-// to launch (16, equal to n_ways) or 0 for the one that reads n_ways at
-// run time; the Python wrapper picks it
+// to launch (16, equal to n_ways, for planes whose rows are 16-byte
+// aligned) or 0 for the one that reads n_ways at run time; up to 1024
+// lanes take one thread each, more (up to 8192) the wide instance of that
+// way count. The Python wrapper picks it
 // (`repro_torch/kernels/fused_tlb/kernel.py::instance`) and checks shapes,
-// types and alignment (of every row). The planes are (n_rows, n_sets,
+// types and alignment (of every row, for instance 16). The planes are (n_rows, n_sets,
 // n_ways) and the lanes (n_rows, n), contiguous; one block per row. The
 // write-owner hash table has 2^hash_bits entries, at least 2 n. Returns the
 // launch's cudaError_t (0 on success).
@@ -326,7 +383,8 @@ extern "C" int fused_tlb_round(void* tags, void* asids, void* lru,
                                int n_rows, int n_sets, int n_ways, int n,
                                int n_waves, int track_asids, int time,
                                int hash_bits, void* stream) {
-  if (n_rows < 1 || n < 1 || n > MAX_THREADS || n_waves < 1 || n % n_waves ||
+  if (n_rows < 1 || n < 1 || n > MAX_THREADS * LPT_WIDE || n_waves < 1 ||
+      n % n_waves ||
       (instance && instance != n_ways) || hash_bits < 1 || hash_bits > 16 ||
       (1 << hash_bits) < 2 * n)
     return int(cudaErrorInvalidValue);
@@ -342,12 +400,15 @@ extern "C" int fused_tlb_round(void* tags, void* asids, void* lru,
   auto* ht = static_cast<int*>(hit);
   auto* fl = static_cast<int*>(filled);
   auto st = static_cast<cudaStream_t>(stream);
-#define FUSED_TLB_LAUNCH(NW)                                                 \
-  launch<NW>(t, s, l, vp, as, ac, mf, ht, fl, n_rows, n_sets, n_ways, n,    \
-             n_waves, track_asids, time, hash_bits, smem, st)
+#define FUSED_TLB_LAUNCH(NW, LPT)                                            \
+  launch<NW, LPT>(t, s, l, vp, as, ac, mf, ht, fl, n_rows, n_sets, n_ways,  \
+                  n, n_waves, track_asids, time, hash_bits, smem, st)
+  const bool wide = n > MAX_THREADS;
   switch (instance) {
-    case 16: return FUSED_TLB_LAUNCH(16);
-    case 0: return FUSED_TLB_LAUNCH(0);
+    case 16: return wide ? FUSED_TLB_LAUNCH(16, LPT_WIDE)
+                         : FUSED_TLB_LAUNCH(16, 1);
+    case 0: return wide ? FUSED_TLB_LAUNCH(0, LPT_WIDE)
+                        : FUSED_TLB_LAUNCH(0, 1);
     default: return int(cudaErrorInvalidValue);
   }
 #undef FUSED_TLB_LAUNCH

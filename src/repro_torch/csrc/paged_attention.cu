@@ -23,7 +23,14 @@
 // memory's rate, so the products run as FMAs on the CUDA cores.
 //
 // The design, two launches per call:
-//  * Split. The grid is (split, KV head, sequence). Each block takes a
+//  * Split. The grid is one axis of (split, head group, KV head,
+//    sequence), the split fastest, so no count of sequences or KV heads
+//    meets the 65535 limit of grid dims y and z. A head group is at most
+//    G_MAX = 16 of the G query heads of a KV head: a group of G <= 16 is
+//    all of them, a larger G (71 for Falcon-7B's multi-query heads) is
+//    cut into ceil(G / 16) groups of equal size but the last, each a
+//    block of its own that streams the span's K and V again (from L2,
+//    as the groups of one span run side by side). Each block takes a
 //    fixed span of `pps` pages of one (KV head, sequence); the wrapper
 //    picks the span on the host from the page size and the table's width
 //    alone (`kernel.py::split_plan`, ~128 tokens), without reading
@@ -31,8 +38,8 @@
 //    pages writes the empty partial m = -1e30, l = 0 and exits. Every
 //    other block runs the online softmax over its span and writes its
 //    partial (m, l, acc) in float32 to scratch the wrapper allocated.
-//  * Combine. One block per (query head, sequence) merges the partials in
-//    split order, m* = max m_i, o = sum_i e^(m_i - m*) acc_i /
+//  * Combine. One block per (query head, sequence), on one grid axis,
+//    merges the partials in split order, m* = max m_i, o = sum_i e^(m_i - m*) acc_i /
 //    max(sum_i e^(m_i - m*) l_i, 1e-30), over the splits with l_i > 0: no
 //    atomics, so a result repeats bit for bit from run to run, and a row
 //    with no live split gives 0.
@@ -46,6 +53,15 @@
 //    otherwise hold more blocks per SM, and was slower on the card.
 //  * Prologue. seq_len, the span's table entries and q are loaded in one
 //    round trip, before the block knows whether it is live.
+//  * Head widths: the widths the models run (32, 64, 96, 128) with one
+//    head group have exact instances, which compile no column checks and
+//    no group arithmetic. Every other call runs a padded instance (DH
+//    128, 192 or 256, blocks of up to 16 heads): a head of dh < DH
+//    columns (whole 16-byte pieces: dh a multiple of 8 in bf16, 4 in
+//    fp32) reads the columns past dh as zeros (q's by a select, K's and
+//    V's by cp.async's source size 0), which add nothing to q.k, and
+//    stores only its dh columns. Other heads and layouts the wrapper
+//    stages (kernel.py::plan).
 //  * Per tile: q.k with lane = token and warp = a quarter of the head
 //    dim, q as float32 in shared memory (broadcast reads); the four
 //    quarters summed, the tile's online-softmax update with one warp per
@@ -63,7 +79,12 @@
 //   fp32: DH 128: 56 / 80 / 135; DH 96: 62 / 80 / 144;
 //         DH 64: 44 / 62 / 102;  DH 32: 44 / 56 / 79;
 // no instance spills but <fp32, 128, 8> (8 bytes of stack). The combine
-// kernel: 32 registers, 272 bytes of static shared memory. Dynamic shared
+// kernel: 32 registers, 272 bytes of static shared memory. (The readings
+// before the head groups, one grid axis and padded widths.) Now, the exact
+// instances (EXACT, below) as before within a few registers (the pool's
+// <bf16, 128, 4>: 56, no spill); the padded ones (GB 16), DH 128 / 192 /
+// 256: bf16 168 / 168 (20 B spilled) / 244, fp32 192 / 189 / 253. The
+// combine kernel: 32 registers, 288 bytes of static shared memory. Dynamic shared
 // memory of a split block (split_smem_bytes): the ring, 2 x 2 x 32 rows of
 // DH x sizeof(T) + 16 bytes, plus q, the q.k quarters, p and the span's
 // table: 39,444 bytes at the pool's shape (bf16, DH 128, G 4, one page per
@@ -78,7 +99,8 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int G_MAX = 16;         // query heads per KV head
+constexpr int G_MAX = 16;         // query heads of a block (a head group)
+constexpr int DH_MAX = 256;       // the widest instance
 constexpr float NEG_INF = -1e30f;
 constexpr int TT = 32;            // tokens per ring tile
 constexpr int NS = 2;             // ring stages
@@ -180,16 +202,20 @@ size_t split_smem_bytes(int G, int page, int pps) {
          sizeof(int) * size_t(pps);
 }
 
-// One block per (split s, KV head kv, sequence b); see the note above.
-template <typename T, int DH, int GB>
+// One block per (split s, head group hg, KV head kv, sequence b); see the
+// note above. DH: the instance's padded head width; dh <= DH the true one.
+// G_all query heads per KV head, in groups of GS (the last may be short).
+// EXACT: dh == DH and one group (G_all <= GB), as every model's call; the
+// instance then compiles no column checks and no group arithmetic.
+template <typename T, int DH, int GB, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ bt,
                    const int* __restrict__ seq_lens,
                    float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int H, int KV, int G,
-                   int page, int n_pages, int P, int pps, int n_splits,
-                   float scale) {
+                   float* __restrict__ part_acc, int H, int KV, int G_all,
+                   int GS, int n_groups_rt, int dh_rt, int page,
+                   int n_pages, int P, int pps, int n_splits, float scale) {
   constexpr int SZ = sizeof(T);
   constexpr int ROW = DH * SZ + PAD;       // bytes of a staged row
   constexpr int CPR = DH * SZ / 16;        // 16-byte chunks per row
@@ -202,9 +228,18 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   static_assert(SL % E == 0 && DH % 32 == 0, "head dim");
   static_assert(TT % 32 == 0, "tile");
 
-  const int s = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int dh = EXACT ? DH : dh_rt;
+  const int n_groups = EXACT ? 1 : n_groups_rt;
+  const int s = blockIdx.x % n_splits;
+  const int rest = blockIdx.x / n_splits;
+  const int hg = EXACT ? 0 : rest % n_groups;
+  const int kvb = EXACT ? rest : rest / n_groups;   // kv + KV * b
+  const int kv = kvb % KV, b = kvb / KV;
+  // the query heads of this block
+  const int G = EXACT ? G_all : min(GS, G_all - hg * GS);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long hrow = (long long)b * H + (long long)kv * G;  // (b, h0)
+  const long long hrow = (long long)b * H + (long long)kv * G_all +
+                         (long long)hg * GS;                 // (b, h0)
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
   float* qs = reinterpret_cast<float*>(smem + size_t(NS) * 2 * TT * ROW);
@@ -220,9 +255,17 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int* btb = bt + (long long)b * n_pages + pg0;
   const int len = seq_lens[b];
   const int entry = btb[min(tid, min(pps, n_pages - pg0) - 1)];
-  const T* qb = q + hrow * DH;
+  const T* qb = q + hrow * dh;
+  if constexpr (EXACT) {
 #pragma unroll 4
-  for (int i = tid; i < G * DH; i += THREADS) qs[i] = to_float(qb[i]);
+    for (int i = tid; i < G * DH; i += THREADS) qs[i] = to_float(qb[i]);
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < G * DH; i += THREADS) {
+      const int g = i / DH, d = i - g * DH;   // columns past dh read as 0
+      qs[i] = d < dh ? to_float(qb[g * dh + d]) : 0.f;
+    }
+  }
   const int n_live = len > 0 ? min((len + page - 1) / page, n_pages) : 0;
   if (pg0 >= n_live) {                     // the empty partial
     if (tid < G) {
@@ -243,11 +286,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     tbl[i] = min(max(btb[i], 0), P - 1);
   __syncthreads();
 
-  const long long tok = (long long)KV * DH;        // elements per token
+  const long long tok = (long long)KV * dh;        // elements per token
+  const int cpr = dh * SZ / 16;                    // live chunks of a row
   const unsigned char* kbase =
-      reinterpret_cast<const unsigned char*>(kp + (long long)kv * DH);
+      reinterpret_cast<const unsigned char*>(kp + (long long)kv * dh);
   const unsigned char* vbase =
-      reinterpret_cast<const unsigned char*>(vp + (long long)kv * DH);
+      reinterpret_cast<const unsigned char*>(vp + (long long)kv * dh);
   // tile `tile` of the span into ring stage `stage`: TT rows of K and V
   auto issue = [&](int tile, int stage) {
     unsigned char* kd = ring + size_t(stage) * 2 * TT * ROW;
@@ -255,7 +299,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int c = tid; c < TT * CPR; c += THREADS) {
       const int r = c / CPR, cc = c % CPR;
       const int u = tile * TT + r;                 // token within the span
-      const bool in = u < span;
+      const bool in = u < span && (EXACT || cc < cpr);
       long long off = 0;
       if (in) {
         const int lp = u / page;
@@ -429,11 +473,11 @@ template <typename T>
 __global__ void paged_combine_kernel(const float* __restrict__ part_m,
                                      const float* __restrict__ part_l,
                                      const float* __restrict__ part_acc,
-                                     T* __restrict__ o, int H, int DH,
+                                     T* __restrict__ o, int DH, int dh,
                                      int n_splits) {
-  __shared__ float w_s[CB], l_s[CB], mx_s[4];
+  __shared__ float w_s[CB], l_s[CB], mx_s[DH_MAX / 32];
   const int d = threadIdx.x;
-  const long long row = (long long)blockIdx.y * H + blockIdx.x;
+  const long long row = blockIdx.x;       // b * H + h
   const float* pm = part_m + row * n_splits;
   const float* pl = part_l + row * n_splits;
   const float* pa = part_acc + row * n_splits * DH + d;
@@ -469,67 +513,81 @@ __global__ void paged_combine_kernel(const float* __restrict__ part_m,
     }
     if (live < cn) break;                  // the rest are empty
   }
-  o[row * DH + d] = from_float<T>(num / fmaxf(den, 1e-30f));
+  if (d < dh) o[row * dh + d] = from_float<T>(num / fmaxf(den, 1e-30f));
 }
 
-template <typename T, int DH, int GB>
+template <typename T, int DH, int GB, bool EXACT>
 int launch_g(const void* q, const void* kp, const void* vp, const int* bt,
              const int* sl, float* pm, float* pl, float* pa, void* o, int B,
-             int H, int KV, int page, int n_pages, int P, int pps,
-             int n_splits, float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const size_t smem = split_smem_bytes<T, DH, GB>(G, page, pps);
+             int H, int KV, int GS, int n_groups, int dh, int page,
+             int n_pages, int P, int pps, int n_splits, float scale,
+             cudaStream_t stream) {
+  const size_t smem = split_smem_bytes<T, DH, GB>(GS, page, pps);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, DH, GB>,
+      paged_split_kernel<T, DH, GB, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  paged_split_kernel<T, DH, GB><<<dim3(n_splits, KV, B), THREADS, smem,
-                                  stream>>>(
+  const unsigned blocks = unsigned(n_splits) * n_groups * KV * B;
+  paged_split_kernel<T, DH, GB, EXACT><<<blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, sl, pm, pl, pa, H, KV, G, page, n_pages,
-      P, pps, n_splits, scale);
+      static_cast<const T*>(vp), bt, sl, pm, pl, pa, H, KV, H / KV, GS,
+      n_groups, dh, page, n_pages, P, pps, n_splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  paged_combine_kernel<T><<<dim3(H, B), DH, 0, stream>>>(
-      pm, pl, pa, static_cast<T*>(o), H, DH, n_splits);
+  paged_combine_kernel<T><<<unsigned(H) * B, DH, 0, stream>>>(
+      pm, pl, pa, static_cast<T*>(o), DH, dh, n_splits);
   return int(cudaGetLastError());
 }
 
+// The instance of a call. Exact (dh == DH, one group): the widths the
+// models run, 32-128, with GB = 4, 8 or 16 for the block's GS query heads.
+// Padded (any other head of whole 16-byte pieces, or G > 16): the widths
+// 128, 192 and 256, with blocks of up to 16 heads; fewer instances keep
+// the source's build short, at the cost of registers for a padded call
+// of few heads.
 template <typename T, int DH>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* sl, float* pm, float* pl, float* pa, void* o, int B,
-           int H, int KV, int page, int n_pages, int P, int pps,
-           int n_splits, float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  if (G <= 4)
-    return launch_g<T, DH, 4>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV,
-                              page, n_pages, P, pps, n_splits, scale, stream);
-  if (G <= 8)
-    return launch_g<T, DH, 8>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV,
-                              page, n_pages, P, pps, n_splits, scale, stream);
-  return launch_g<T, DH, G_MAX>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV,
-                                page, n_pages, P, pps, n_splits, scale,
-                                stream);
+           int H, int KV, int GS, int n_groups, int dh, int page,
+           int n_pages, int P, int pps, int n_splits, float scale,
+           cudaStream_t stream) {
+#define PAGED_LAUNCH_G(GB, EXACT)                                           \
+  launch_g<T, DH, GB, EXACT>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV,    \
+                             GS, n_groups, dh, page, n_pages, P, pps,       \
+                             n_splits, scale, stream)
+  if constexpr (DH <= 128) {
+    if (dh == DH && n_groups == 1) {
+      if (GS <= 4) return PAGED_LAUNCH_G(4, true);
+      if (GS <= 8) return PAGED_LAUNCH_G(8, true);
+      return PAGED_LAUNCH_G(G_MAX, true);
+    }
+  }
+  if constexpr (DH >= 128)
+    return PAGED_LAUNCH_G(G_MAX, false);
+  else
+    return int(cudaErrorInvalidValue);        // no padded instance below 128
+#undef PAGED_LAUNCH_G
 }
 
 template <typename T>
-int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
+int dispatch_dh(int dhp, const void* q, const void* kp, const void* vp,
                 const int* bt, const int* sl, float* pm, float* pl, float* pa,
-                void* o, int B, int H, int KV, int page, int n_pages, int P,
-                int pps, int n_splits, float scale, cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV, page,
-                           n_pages, P, pps, n_splits, scale, stream);
-    case 64:
-      return launch<T, 64>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV, page,
-                           n_pages, P, pps, n_splits, scale, stream);
-    case 96:
-      return launch<T, 96>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV, page,
-                           n_pages, P, pps, n_splits, scale, stream);
-    case 128:
-      return launch<T, 128>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV, page,
-                            n_pages, P, pps, n_splits, scale, stream);
+                void* o, int B, int H, int KV, int GS, int n_groups, int dh,
+                int page, int n_pages, int P, int pps, int n_splits,
+                float scale, cudaStream_t stream) {
+  switch (dhp) {
+#define PAGED_CASE(DH)                                                      \
+  case DH:                                                                  \
+    return launch<T, DH>(q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV, GS,    \
+                         n_groups, dh, page, n_pages, P, pps, n_splits,     \
+                         scale, stream);
+    PAGED_CASE(32)
+    PAGED_CASE(64)
+    PAGED_CASE(96)
+    PAGED_CASE(128)
+    PAGED_CASE(192)
+    PAGED_CASE(256)
+#undef PAGED_CASE
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -538,22 +596,31 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // q: (B, H, dh); k/v pages: (P, page, KV, dh); block_table: (B, n_pages)
-// int32; seq_lens: (B,) int32; o like q. All contiguous, 16-byte aligned.
-// The split: `pps` pages per block, n_splits = ceil(n_pages / pps) blocks
-// per (KV head, sequence). Scratch, float32: part_m and part_l (B, H,
-// n_splits), part_acc (B, H, n_splits, dh). dtype: 0 = float32, 1 =
+// int32; seq_lens: (B,) int32; o like q. All contiguous, 16-byte aligned,
+// dh whole 16-byte pieces. `dhp`: the instance's padded width (32, 64, 96,
+// 128, 192 or 256, at least dh); `gs`: query heads of a block, the G = H /
+// KV of a KV head in n_groups = ceil(G / gs) groups. The split: `pps`
+// pages per block, n_splits = ceil(n_pages / pps) blocks per (head group,
+// KV head, sequence). Scratch, float32: part_m and part_l (B, H,
+// n_splits), part_acc (B, H, n_splits, dhp). dtype: 0 = float32, 1 =
 // bfloat16. Two launches on `stream`; returns a cudaError_t (0 =
 // launched).
 extern "C" int paged_attention_fwd(const void* q, const void* kp,
                                    const void* vp, const void* block_table,
                                    const void* seq_lens, void* part_m,
                                    void* part_l, void* part_acc, void* o,
-                                   int B, int H, int KV, int dh, int page,
-                                   int n_pages, int P, int pps, int n_splits,
-                                   float scale, int dtype, void* stream) {
-  if (B < 1 || KV < 1 || H % KV || H / KV > G_MAX || page < 1 ||
-      n_pages < 1 || P < 1 || pps < 1 || n_splits != (n_pages + pps - 1) / pps
-      || B > 65535 || KV > 65535)
+                                   int B, int H, int KV, int dh, int dhp,
+                                   int gs, int page, int n_pages, int P,
+                                   int pps, int n_splits, float scale,
+                                   int dtype, void* stream) {
+  if (B < 1 || KV < 1 || H % KV || gs < 1 || gs > G_MAX || page < 1 ||
+      n_pages < 1 || P < 1 || pps < 1 ||
+      n_splits != (n_pages + pps - 1) / pps || dh < 1 || dh > dhp ||
+      dh * (dtype == 0 ? 4 : 2) % 16)
+    return int(cudaErrorInvalidValue);
+  const int n_groups = (H / KV + gs - 1) / gs;
+  if ((long long)n_splits * n_groups * KV * B > 2147483647LL ||
+      (long long)H * B > 2147483647LL)
     return int(cudaErrorInvalidValue);
   const int* bt = static_cast<const int*>(block_table);
   const int* sl = static_cast<const int*>(seq_lens);
@@ -562,11 +629,12 @@ extern "C" int paged_attention_fwd(const void* q, const void* kp,
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dh<float>(dh, q, kp, vp, bt, sl, pm, pl, pa, o, B, H, KV,
-                              page, n_pages, P, pps, n_splits, scale, st);
+    return dispatch_dh<float>(dhp, q, kp, vp, bt, sl, pm, pl, pa, o, B, H,
+                              KV, gs, n_groups, dh, page, n_pages, P, pps,
+                              n_splits, scale, st);
   if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, kp, vp, bt, sl, pm, pl, pa, o,
-                                      B, H, KV, page, n_pages, P, pps,
-                                      n_splits, scale, st);
+    return dispatch_dh<__nv_bfloat16>(dhp, q, kp, vp, bt, sl, pm, pl, pa, o,
+                                      B, H, KV, gs, n_groups, dh, page,
+                                      n_pages, P, pps, n_splits, scale, st);
   return int(cudaErrorInvalidValue);
 }

@@ -73,7 +73,28 @@
 //    chunks keep the whole cumsums.
 //  * A ragged chunk (Q not a multiple of 64) zero-fills the rows past Q
 //    and masks s > q.
-// Limits: hd <= 64, ds <= 128, Q <= 30656 (479 tiles, whose prefixes fit
+//  * The grid is one axis of (head tile, hd slice, batch x chunk), the
+//    head tile fastest, so no count of batches or chunks meets the 65535
+//    limit of grid dims y and z.
+//  * Widths past the tiles (the WIDE instances): hd in slices of 64 and
+//    ds in slices of 128, up to 256 each. Each hd slice is a block of its
+//    own: it rebuilds the G strip and the cumsums (G over the whole ds),
+//    and writes its slice of y and of S's rows. Within a block the ds
+//    slices are a loop: G's products accumulate slice after slice (a
+//    slice after the first adds to the strip it stored), and S is written
+//    a ds slice at a time, the x tiles read again for each. At the
+//    serving shape (hd 64, ds 128) nothing of this runs: the main path's
+//    instances are the narrow ones, compiled with one slice of each.
+//    Where it runs, at hd 128 and ds 256, G and the cumsums are built
+//    twice (once per hd slice) and x read twice in the S phase: 1.0542 ms
+//    at B 4, S 2048, 32 heads of 128 (chip_smoke.py phase 20, H100)
+//    against 0.6981 ms for the serving shape's 64 heads of 64, ds 128.
+// Resources (`-Xptxas -v`, build/repro_torch/ssd_scan-*.log): 128
+// registers a thread in every instance (16 warps, one block an SM); spill
+// stores <WIN, WIDE>: <false, false> (the serving shape) 56 B, as before
+// the slices; <true, false> 208 B; <false, true> 176 B; <true, true>
+// 604 B.
+// Limits: hd <= 256, ds <= 256, Q <= 30656 (479 tiles, whose prefixes fit
 // in shared memory beside the windows and buffers); the wrapper raises on
 // others.
 
@@ -86,10 +107,12 @@ namespace {
 constexpr int T = 64;              // rows of a q tile and of an s tile
 constexpr int HT = 8;              // heads per block
 constexpr int GT = 4;              // s tiles in the G strip
-constexpr int HD_MAX = 64;
-constexpr int DS_MAX = 128;
-constexpr int CP = DS_MAX + 4;     // row pitch of C and B tiles (4 mod 32)
-constexpr int XP = HD_MAX + 4;     // row pitch of x tiles (4 mod 32)
+constexpr int HD_T = 64;           // columns of an x tile: an hd slice
+constexpr int DS_T = 128;          // columns of a C or B tile: a ds slice
+constexpr int HD_MAX = 4 * HD_T;   // the widest hd and ds the kernel takes
+constexpr int DS_MAX = 2 * DS_T;
+constexpr int CP = DS_T + 4;       // row pitch of C and B tiles (4 mod 32)
+constexpr int XP = HD_T + 4;       // row pitch of x tiles (4 mod 32)
 constexpr int GP = GT * T + 8;     // row pitch of the G strip (8 mod 32)
 constexpr int THREADS = 512;
 constexpr int TILE_C = T * CP;     // floats of a C or B tile
@@ -301,13 +324,14 @@ __device__ __forceinline__ void mma3(float (&d)[M][N][4],
     for (int j = 0; j < N; ++j) mma(d[m][j], a[m].hi, b0[j].hi, b1[j].hi);
 }
 
-template <bool WIN>
+// WIN: cs windows (Q > 768); WIDE: hd > 64 or ds > 128, in slices
+template <bool WIN, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                  const float* __restrict__ Bm, const float* __restrict__ Cm,
                  float* __restrict__ y, float* __restrict__ S,
-                 float* __restrict__ decay, int nc, int Q, int nh, int hd,
-                 int ds, int vec) {
+                 float* __restrict__ decay, int Q, int nh, int hd, int ds,
+                 int vec) {
   extern __shared__ __align__(16) float smem[];
   const int nt = (Q + T - 1) / T;
   const int cstride = WIN ? CW : nt * T;
@@ -319,17 +343,23 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;        // mma fragment coordinates
-  const int h0 = blockIdx.x * HT, c = blockIdx.y, b = blockIdx.z;
+  // the block: head tile, hd slice, (batch, chunk), on one grid axis
+  const int nht = (nh + HT - 1) / HT;
+  const int nhs = WIDE ? (hd + HD_T - 1) / HD_T : 1;
+  const int h0 = int(blockIdx.x % nht) * HT;
+  const int p0 = WIDE ? int(blockIdx.x / nht % nhs) * HD_T : 0;
+  const long long bc = blockIdx.x / nht / nhs;    // b * nc + chunk
+  const int hdl = WIDE ? min(HD_T, hd - p0) : hd; // this slice's columns
+  const int nds = WIDE ? (ds + DS_T - 1) / DS_T : 1;   // ds slices
   const int nhb = min(HT, nh - h0);            // heads of this block
   const int pairs = (nhb + 1) / 2;
-  const long long bc = (long long)b * nc + c;
   const long long xrow = (long long)nh * hd;   // x / y row stride
-  const float* xb = x + bc * Q * xrow + (long long)h0 * hd;
+  const float* xb = x + bc * Q * xrow + (long long)h0 * hd + p0;
   const float* Bb = Bm + bc * Q * ds;
   const float* Cb = Cm + bc * Q * ds;
   const float* ab = dA + bc * Q * nh + h0;
-  float* yb = y + bc * Q * xrow + (long long)h0 * hd;
-  float* Sb = S + (bc * nh + h0) * hd * ds;
+  float* yb = y + bc * Q * xrow + (long long)h0 * hd + p0;
+  float* Sb = S + (bc * nh + h0) * hd * ds + (long long)p0 * ds;
   const bool v = vec != 0;
 
   // the cumsum of dA, one warp per head. Kept whole: each lane sums a run
@@ -375,7 +405,7 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     }
     if (lane == 0) {
       csend[warp] = cs_end;
-      decay[bc * nh + h0 + warp] = expf(cs_end);
+      if (p0 == 0) decay[bc * nh + h0 + warp] = expf(cs_end);
     }
   }
   __syncthreads();
@@ -390,20 +420,25 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
       const int ns = min(GT, qt + 1 - sa);       // s tiles of this strip
 
       // ---- G strip: G[q, s] = C[q, :] . B[s, :] (warp: 16 rows x 16
-      // columns of a 64 x 64 tile; k over ds, unpermuted)
+      // columns of a 64 x 64 tile; k over ds, unpermuted), a ds slice at
+      // a time (one but for the WIDE instances)
       float* Cs = R;
+      for (int dsl = 0; dsl < nds; ++dsl) {
+      const int d0 = dsl * DS_T;
+      const int dsw = WIDE ? min(DS_T, ds - d0) : ds;  // the slice's width
       pipeline(
           ns,
           [&](int i, int buf) {
             if (i == 0)
-              load_tile(Cs, CP, Cb + (long long)q0 * ds, ds, Q - q0, ds,
-                        DS_MAX, v);
+              load_tile(Cs, CP, Cb + (long long)q0 * ds + d0, ds, Q - q0,
+                        dsw, DS_T, v);
             const int s0 = (sa + i) * T;
-            load_tile(R + (1 + buf) * TILE_C, CP, Bb + (long long)s0 * ds,
-                      ds, Q - s0, ds, DS_MAX, v);
+            load_tile(R + (1 + buf) * TILE_C, CP,
+                      Bb + (long long)s0 * ds + d0, ds, Q - s0, dsw, DS_T,
+                      v);
             // under the first copies, each head's cs window for the y
             // phase: the q tile, then the strip's s tiles
-            if (WIN && i == 0 && warp < nhb)
+            if (WIN && i == 0 && dsl == 0 && warp < nhb)
               fill_window(cs + warp * CW, ab + warp, pre + warp * nt, nh,
                           Q, qt, sa, 1 + ns, lane);
           },
@@ -414,7 +449,7 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
             float acc[1][2][4] = {};
             const float* ca = Cs + (16 * mw + g) * CP + t;
             const float* bb = Bs + (16 * nw + g) * CP + t;
-            for (int k0 = 0; k0 < ds; k0 += 8) {
+            for (int k0 = 0; k0 < dsw; k0 += 8) {
               const FragA a[1] = {FragA(ca[k0], ca[k0 + 8 * CP], ca[k0 + 4],
                                         ca[k0 + 8 * CP + 4])};
               Split b0[2], b1[2];
@@ -426,6 +461,18 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
               mma3(acc, a, b0, b1);
             }
             float* gs = Gs + (16 * mw + g) * GP + i * T + 16 * nw + 2 * t;
+            if (WIDE && dsl > 0) {           // add to the earlier slices'
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const float2 a = *reinterpret_cast<float2*>(gs + 8 * j);
+                const float2 b = *reinterpret_cast<float2*>(gs + 8 * GP +
+                                                            8 * j);
+                acc[0][j][0] += a.x;
+                acc[0][j][1] += a.y;
+                acc[0][j][2] += b.x;
+                acc[0][j][3] += b.y;
+              }
+            }
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               *reinterpret_cast<float2*>(gs + 8 * j) =
@@ -434,6 +481,7 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                   make_float2(acc[0][j][2], acc[0][j][3]);
             }
           });
+      }
 
       // ---- y_h += (G o L_h) . x_h over the strip, YH heads at a time
       // (warp: head ye of YH, q rows 16 mw + (g, g + 8), all p)
@@ -447,7 +495,7 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
               const int hl = YH * hq + ee;
               load_tile(R + (YH * buf + ee) * TILE_X, XP,
                         xb + s0 * xrow + (long long)hl * hd, xrow,
-                        hl < nhb ? Q - s0 : 0, hd, HD_MAX, v);
+                        hl < nhb ? Q - s0 : 0, hdl, HD_T, v);
             }
           },
           [&](int i, int buf) {
@@ -463,7 +511,7 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                 for (int k = 0; k < 4; ++k) {
                   const int q = k < 2 ? qa : qb, p = 8 * j + 2 * t + k % 2;
                   // add to the earlier strips' sums
-                  yacc[0][j][k] = sa > 0 && q < Q && p < hd
+                  yacc[0][j][k] = sa > 0 && q < Q && p < hdl
                       ? yb[q * xrow + (long long)hl * hd + p] : 0.f;
                 }
             }
@@ -512,7 +560,7 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 #pragma unroll
                 for (int k = 0; k < 4; ++k) {
                   const int q = k < 2 ? qa : qb, p = 8 * j + 2 * t + k % 2;
-                  if (q < Q && p < hd)
+                  if (q < Q && p < hdl)
                     yb[q * xrow + (long long)hl * hd + p] = yacc[0][j][k];
                 }
             }
@@ -522,35 +570,39 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 
   // ---- S_h = (d2e_h o x_h)^T . B, two heads at a time, over the s tiles
   // (WIN: in groups of WT, one cs window each; a group after the first
-  // adds to the S it stored) (warp: head e of the pair, p rows 32 pm +
+  // adds to the S it stored), a ds slice of columns at a time (one but
+  // for the WIDE instances) (warp: head e of the pair, p rows 32 pm +
   // 16 m + (g, g + 8), d columns 32 dn + 8 j + (2t, 2t + 1))
   const int e = warp / 8, pm = (warp / 4) % 2, dn = warp % 4;
   const int gs = WIN ? WT : nt;                    // s tiles of a group
   float sacc[2][4][4];
   for (int sg = 0; sg < nt; sg += gs) {
     const int ng = min(gs, nt - sg);               // s tiles of this group
+    for (int dsl = 0; dsl < nds; ++dsl) {
+    const int d0 = dsl * DS_T;
+    const int dsw = WIDE ? min(DS_T, ds - d0) : ds;  // the slice's width
     pipeline(
         pairs * ng,
         [&](int i, int buf) {
           const int hp = i / ng, s0 = (sg + i % ng) * T;
           float* base = Gs + buf * (TILE_C + 2 * TILE_X);
-          load_tile(base, CP, Bb + (long long)s0 * ds, ds, Q - s0, ds,
-                    DS_MAX, v);
+          load_tile(base, CP, Bb + (long long)s0 * ds + d0, ds, Q - s0, dsw,
+                    DS_T, v);
 #pragma unroll
           for (int ee = 0; ee < 2; ++ee) {
             const int hl = 2 * hp + ee;
             load_tile(base + TILE_C + ee * TILE_X, XP,
                       xb + s0 * xrow + (long long)hl * hd, xrow,
-                      hl < nhb ? Q - s0 : 0, hd, HD_MAX, v);
+                      hl < nhb ? Q - s0 : 0, hdl, HD_T, v);
           }
-          if (WIN && i == 0 && warp < nhb)
+          if (WIN && i == 0 && dsl == 0 && warp < nhb)
             fill_window(cs + warp * CW, ab + warp, pre + warp * nt, nh, Q,
                         sg, sg + 1, ng, lane);
         },
         [&](int i, int buf) {
           const int hp = i / ng, si = i % ng, hl = 2 * hp + e;
           if (hl >= nhb) return;
-          float* so = Sb + (long long)hl * hd * ds;
+          float* so = Sb + (long long)hl * hd * ds + d0;
           if (si == 0) {
 #pragma unroll
             for (int m = 0; m < 2; ++m)
@@ -562,8 +614,8 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                   const int d = 32 * dn + 8 * j + 2 * t + k % 2;
                   // add to the earlier groups' sums
                   sacc[m][j][k] =
-                      WIN && sg > 0 && p < hd && d < ds ? so[p * ds + d]
-                                                         : 0.f;
+                      WIN && sg > 0 && p < hdl && d < dsw ? so[p * ds + d]
+                                                           : 0.f;
                 }
           }
           const float* base = Gs + buf * (TILE_C + 2 * TILE_X);
@@ -604,10 +656,11 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                 for (int k = 0; k < 4; ++k) {
                   const int p = 32 * pm + 16 * m + g + (k < 2 ? 0 : 8);
                   const int d = 32 * dn + 8 * j + 2 * t + k % 2;
-                  if (p < hd && d < ds) so[p * ds + d] = sacc[m][j][k];
+                  if (p < hdl && d < dsw) so[p * ds + d] = sacc[m][j][k];
                 }
           }
         });
+    }
   }
 }
 
@@ -615,20 +668,27 @@ ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 
 // x: (B, nc, Q, nh, hd); dA: (B, nc, Q, nh); Bm, Cm: (B, nc, Q, ds);
 // y like x; S: (B, nc, nh, hd, ds); decay: (B, nc, nh). All float32,
-// contiguous. Returns a cudaError_t (0 = launched).
+// contiguous; hd, ds <= 256. Returns a cudaError_t (0 = launched).
 extern "C" int ssd_intra_chunk_fwd(const void* x, const void* dA,
                                    const void* Bm, const void* Cm, void* y,
                                    void* S, void* decay, int B, int nc,
                                    int Q, int nh, int hd, int ds,
                                    void* stream) {
   if (B < 1 || nc < 1 || Q < 1 || nh < 1 || hd < 1 || ds < 1 ||
-      hd > HD_MAX || ds > DS_MAX || B > 65535 || nc > 65535)
+      hd > HD_MAX || ds > DS_MAX)
     return int(cudaErrorInvalidValue);
+  const int nhs = (hd + HD_T - 1) / HD_T;           // hd slices
+  const long long blocks = (long long)((nh + HT - 1) / HT) * nhs * B * nc;
+  if (blocks > 2147483647LL) return int(cudaErrorInvalidValue);
   // the whole cumsums while they fit (Q <= 768), else windows
   const bool win = smem_bytes(Q, false) > SMEM_MAX;
   const size_t smem = smem_bytes(Q, win);
   if (smem > SMEM_MAX) return int(cudaErrorInvalidValue);
-  const auto kernel = win ? ssd_intra_kernel<true> : ssd_intra_kernel<false>;
+  const bool wide = hd > HD_T || ds > DS_T;
+  const auto kernel = win ? (wide ? ssd_intra_kernel<true, true>
+                                  : ssd_intra_kernel<true, false>)
+                          : (wide ? ssd_intra_kernel<false, true>
+                                  : ssd_intra_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -637,11 +697,11 @@ extern "C" int ssd_intra_chunk_fwd(const void* x, const void* dA,
                   ((reinterpret_cast<uintptr_t>(x) |
                     reinterpret_cast<uintptr_t>(Bm) |
                     reinterpret_cast<uintptr_t>(Cm)) & 15) == 0;
-  const dim3 grid((nh + HT - 1) / HT, nc, B);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<unsigned(blocks), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dA),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm),
       static_cast<float*>(y), static_cast<float*>(S),
-      static_cast<float*>(decay), nc, Q, nh, hd, ds, vec);
+      static_cast<float*>(decay), Q, nh, hd, ds, vec);
   return int(cudaGetLastError());
 }

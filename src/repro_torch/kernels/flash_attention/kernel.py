@@ -12,10 +12,20 @@ a refused launch raises.
 on the current stream and raises if the launch failed. It does not
 synchronise. q, k and v may be strided views, as long as the head
 dimension is contiguous: the model passes (B, S, H, dh) tensors with axes
-1 and 2 swapped, and the kernels read them in place, with no copy. Both
-kernels read 16-byte pieces (TMA in bf16, cp.async and vector loads in
-fp32), which need 16-byte aligned base addresses and strides
-(`tma_strides`); the model's tensors always qualify.
+1 and 2 swapped, and the kernels read them in place, with no copy.
+
+`plan` picks the compiled instance: each kernel is compiled for a few
+padded head widths (`INSTANCES`) and reads a narrower head through them,
+the columns past dh read as zeros (TMA's fill in bf16, cp.async's source
+size in fp32), which add nothing to q.k and are not stored. Both kernels
+read 16-byte pieces (TMA in bf16, cp.async and vector loads in fp32),
+which need 16-byte aligned base addresses and strides (`tma_strides`) and
+a head of whole 16-byte pieces (dh a multiple of 8 in bf16, 4 in fp32).
+The model's tensors always qualify. Any other input is staged: copied
+into fresh zero-padded contiguous buffers (`stage`), run through the same
+kernel with the scale of its true dh, and returned as the slice of its
+dh columns; `flash_attention_bhsd.staged` counts such calls (a copy, not
+a fallback: the kernel still runs and is counted).
 `flash_attention_bhsd.launches` counts every launch, and
 `flash_attention_bhsd.route_launches[route]` those of each kernel, so a run
 can show which kernel it went through. Each call reports its work to an
@@ -29,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,10 +48,23 @@ from torch._subclasses.fake_tensor import is_fake
 from repro_torch.kernels import _build
 from repro_torch.roofline.counter import counting, kernel_work
 
-HEAD_DIMS = (32, 64, 96, 128)    # head dims both kernels take
+HEAD_DIM_MAX = 256               # the widest instance of either kernel
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "split_tf32"}
 SOURCES = {"wgmma": "flash_attention_sm90", "split_tf32": "flash_attention"}
+# the padded head widths each kernel is compiled for
+INSTANCES = {"wgmma": (64, 128, 192, 256),
+             "split_tf32": tuple(range(32, HEAD_DIM_MAX + 1, 32))}
 TMA_ALIGN = 16                   # bytes: both kernels' addresses, strides
+
+
+class Plan(NamedTuple):
+    """How a call runs: the head width the kernel reads (`dh`: the true
+    one rounded up to whole 16-byte pieces), the compiled instance, and
+    whether the inputs are first copied into zero-padded contiguous
+    buffers (`staged`)."""
+    dh: int
+    instance: int
+    staged: bool
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,29 +87,62 @@ def route(dtype) -> str:
     return ROUTES[dtype]
 
 
+def plan(dtype, dh: int, aligned: bool = True) -> Plan:
+    """The plan of a call on q, k, v of `dtype` and head dim `dh` whose
+    addresses and strides are (`aligned`) or are not 16-byte aligned.
+    The kernel reads dh rounded up to whole 16-byte pieces through the
+    narrowest instance at or above it; a call is staged where that
+    rounding moves dh or the layout is not aligned. Raises ValueError on
+    a dtype no kernel takes or a head dim above HEAD_DIM_MAX."""
+    kind = route(dtype)
+    if not 1 <= dh <= HEAD_DIM_MAX:
+        raise ValueError(f"flash_attention: head dim {dh} is not in 1.."
+                         f"{HEAD_DIM_MAX} (the widest instance)")
+    step = TMA_ALIGN // dtype.itemsize
+    dk = -(-dh // step) * step
+    width = min(w for w in INSTANCES[kind] if w >= dk)
+    return Plan(dk, width, dk != dh or not aligned)
+
+
+def stage(t, dh: int):
+    """A fresh contiguous copy of the (B, n, S, d) tensor `t`, widened to
+    `dh` columns with zeros."""
+    out = t.new_zeros(tuple(t.shape[:3]) + (dh,))
+    out[..., :t.shape[3]] = t
+    return out
+
+
+def _stride_fault(t, name: str):
+    """Why `t` cannot go to the kernels as it lies (its address or a
+    stride off 16 bytes), or None. A dim of length 1 is never stepped
+    over; a fake tensor's address is not checked."""
+    if not is_fake(t) and t.data_ptr() % TMA_ALIGN:
+        return (f"flash_attention: {name}'s address is not {TMA_ALIGN}-byte"
+                f" aligned (16-byte loads need it)")
+    for dim in range(3):
+        stride = t.stride(dim)
+        if t.shape[dim] != 1 and (stride <= 0 or
+                                  stride * t.element_size() % TMA_ALIGN):
+            return (f"flash_attention: {name}'s stride {stride} of dim {dim}"
+                    f" is not a positive multiple of {TMA_ALIGN} bytes "
+                    f"(16-byte loads need it)")
+    return None
+
+
 def tma_strides(t, name: str):
     """The (b, h, s) strides of `t`, in elements, as the tensor-core
     kernel's tensor map describes them (the fp32 kernel takes the same).
     Raises ValueError, naming the tensor, unless its address and the
     strides of its dims longer than 1 are multiples of 16 bytes, which TMA
-    and the fp32 kernel's 16-byte copies need. A dim of length 1 is never
-    stepped over, so its stride is replaced by the head dim's length. A
-    fake tensor's address is not checked."""
-    nbytes = t.element_size()
-    if not is_fake(t) and t.data_ptr() % TMA_ALIGN:
-        raise ValueError(f"flash_attention: {name}'s address is not "
-                         f"{TMA_ALIGN}-byte aligned (16-byte loads need it)")
-    out = []
-    for dim in range(3):
-        stride = t.stride(dim)
-        if t.shape[dim] == 1:
-            stride = t.shape[3]
-        elif stride <= 0 or stride * nbytes % TMA_ALIGN:
-            raise ValueError(f"flash_attention: {name}'s stride {stride} of "
-                             f"dim {dim} is not a positive multiple of "
-                             f"{TMA_ALIGN} bytes (16-byte loads need it)")
-        out.append(stride)
-    return out
+    and the fp32 kernel's 16-byte copies need (`flash_attention_bhsd`
+    stages such a tensor first). A dim of length 1 is never stepped over,
+    so its stride is replaced by the head dim's length. A fake tensor's
+    address is not checked."""
+    fault = _stride_fault(t, name)
+    if fault:
+        raise ValueError(fault)
+    return [t.shape[3] if t.shape[dim] == 1 else t.stride(dim)
+            for dim in range(3)]
 
 
 def check_tiling(Sq: int, Sk: int, block_q: int, block_k: int):
@@ -119,10 +175,10 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
     """Forward attention on the card.
 
     q: (B, H, Sq, dh); k, v: (B, KV, Sk, dh) -> (B, H, Sq, dh), float32 or
-    bfloat16, dh in HEAD_DIMS, H a multiple of KV. `block_q`/`block_k`
+    bfloat16, dh <= HEAD_DIM_MAX, H a multiple of KV. `block_q`/`block_k`
     only set the accepted shapes (`check_tiling`); the kernels tile by 128
-    (wgmma) or 64 (split_tf32). Every check runs before any build or
-    launch."""
+    (wgmma) or 64 (split_tf32). A staged call (`plan`) returns a slice of
+    a padded buffer. Every check runs before any build or launch."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
@@ -132,8 +188,6 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
     if k.shape[0] != B or k.shape[3] != dh or KV < 1 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k/v {tuple(k.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
     dev = q.device
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.dtype not in ROUTES or t.dtype != q.dtype or t.device != dev:
@@ -145,25 +199,30 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
                              "contiguous")
     check_tiling(Sq, Sk, block_q, block_k)
     kind = route(q.dtype)
-    strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"))
-               for s in tma_strides(t, name)]
+    aligned = all(_stride_fault(t, name) is None
+                  for t, name in ((q, "q"), (k, "k"), (v, "v")))
+    how = plan(q.dtype, dh, aligned)
     fake = is_fake(q)
     if dev.type != "cuda" or not (
             fake or dev.index == torch.cuda.current_device()):
         raise ValueError(f"flash_attention kernel needs tensors on the "
                          f"current CUDA device, got {dev}")
 
-    o = torch.empty_like(q)          # q's layout (dense) or contiguous
-    if o.numel() == 0:
-        return o
+    if q.numel() == 0:
+        return torch.empty_like(q)
     if counting():
         kernel_work("flash_attention", *work(q, k, causal, window))
     if fake:
         flash_attention_bhsd.fake_calls += 1
-        return o
+        return torch.empty_like(q)
+    if how.staged:
+        q, k, v = (stage(t, how.dh) for t in (q, k, v))
+    o = torch.empty_like(q)          # q's layout (dense) or contiguous
+    strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"))
+               for s in tma_strides(t, name)]
     err = _entry(kind)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, H, KV, Sq, Sk, dh, *strides, *o.stride()[:3],
+        B, H, KV, Sq, Sk, how.dh, *strides, *o.stride()[:3],
         int(causal), int(window is not None),
         int(window) if window is not None else 0,
         float(1.0 / dh ** 0.5), torch.cuda.current_stream().cuda_stream)
@@ -175,9 +234,13 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
                            f"Sk={Sk}, dh={dh}, {q.dtype})")
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.route_launches[kind] += 1
+    if how.staged:
+        flash_attention_bhsd.staged += 1
+        return o[..., :dh]
     return o
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.staged = 0
 flash_attention_bhsd.fake_calls = 0
 flash_attention_bhsd.route_launches = {kind: 0 for kind in SOURCES}

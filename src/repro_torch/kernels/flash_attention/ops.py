@@ -5,9 +5,10 @@ device goes to the CUDA kernels (`kernel.py`: bf16 to the wgmma kernel,
 fp32 to the split-TF32 kernel), which launch or raise. Nothing falls
 back from one to another. Both devices hold sequence lengths to the same
 tiling (`kernel.check_tiling`). The CPU route takes any head dim; on the
-card both kernels take a head dim in `kernel.HEAD_DIMS` (32, 64, 96, 128)
-and raise ValueError on any other; both also need 16-byte aligned
-addresses and strides (`kernel.tma_strides`).
+card both kernels take a head dim up to `kernel.HEAD_DIM_MAX` (256) and
+raise ValueError above it; a head of whole 16-byte pieces with 16-byte
+aligned addresses and strides runs in place, any other input through
+zero-padded copies (`kernel.plan`, `kernel.stage`).
 
 Neither route takes a gradient: the reference cannot differentiate its
 Pallas kernel either, and trains with `attention_impl="xla_blocked"`.

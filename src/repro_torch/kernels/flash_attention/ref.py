@@ -36,14 +36,18 @@ def _mask(Sq, Sk, causal, window, device):
     return mask
 
 
-def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None):
+def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
+                  scale: Optional[float] = None):
     """q: (B, H, Sq, dh); k, v: (B, KV, Sk, dh). fp32 softmax.
-    Query head h reads KV head h // (H // KV)."""
+    Query head h reads KV head h // (H // KV). The scores are scaled by
+    1 / sqrt(dh), or by `scale` where given (a head zero-padded past its
+    true width keeps the true width's scale)."""
     B, H, Sq, dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, KV, G, Sq, dh)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) / (dh ** 0.5)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float())
+    s = s / (dh ** 0.5) if scale is None else s * scale
     s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype), v)

@@ -6,10 +6,13 @@
 failed. It does not synchronise. The tags/asids/lru planes are updated in
 place and returned, as the TPU kernel's aliased outputs are. With a
 leading row axis (planes (R, sets, ways), lanes (R, N)) the R rounds are
-independent and run in ONE launch, one thread block per row. The kernel
-reads the planes' rows with 16-byte loads, so every row's address must be
-16-byte aligned: the base (a whole torch allocation is) and the row
-stride of sets * ways * 4 bytes. `fused_tlb_round.launches` counts the
+independent and run in ONE launch, one thread block per row. The
+16-way instance reads the planes' rows with 16-byte loads, so it runs
+only where every row's address is 16-byte aligned (the base and the row
+stride of sets * ways * 4 bytes); any other layout runs the instance
+that reads words (`instance`). Up to 1024 lanes take a thread each; more
+(up to MAX_LANES) run the wide instances, whose threads take lanes t,
+t + 1024, ... (`lanes_per_thread`). `fused_tlb_round.launches` counts the
 launches, not the rows, so a run can show that it went through the
 kernel and how many rounds shared each launch.
 """
@@ -22,18 +25,38 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_LANES = 1024                 # one thread per lane, one thread block a row
+THREADS = 1024                   # one thread block a row
+LANES_WIDE = 8                   # lanes a thread of the wide instances
+MAX_LANES = THREADS * LANES_WIDE
 MAX_ROWS = 2**31 - 1             # one block per row: the grid's x limit
 MAX_SMEM = 227 * 1024            # dynamic shared memory of one H100 block
 WAY_INSTANCE = 16                # the main path's way count, compiled as such
 ROW_ALIGN = 16                   # bytes: the planes' rows are read by int4
 
 
-def instance(n_ways: int) -> int:
+def instance(n_ways: int, rows_aligned: bool = True) -> int:
     """The kernel instance that takes `n_ways` ways: 16 for the main path's
-    16-way rounds, which `csrc/fused_tlb.cu` compiles as such, else 0, the
-    instance that reads the count at run time."""
-    return n_ways if n_ways == WAY_INSTANCE else 0
+    16-way rounds, which `csrc/fused_tlb.cu` compiles as such and which
+    read rows by 16-byte loads, when every row of the planes is 16-byte
+    aligned (`rows_aligned`); else 0, the instance that reads the count at
+    run time and the rows word by word."""
+    return n_ways if n_ways == WAY_INSTANCE and rows_aligned else 0
+
+
+def lanes_per_thread(n_lanes: int) -> int:
+    """Lanes each thread of the launch takes: 1 up to THREADS lanes (a
+    thread a lane), else LANES_WIDE (the wide instance: THREADS threads,
+    thread t taking lanes t, t + THREADS, ...)."""
+    return 1 if n_lanes <= THREADS else LANES_WIDE
+
+
+def rows_aligned(planes, n_rows: int) -> bool:
+    """Whether every row of each plane (sets, ways) or (R, sets, ways)
+    starts on a 16-byte boundary: its base address and, for R > 1, the
+    row stride of sets * ways * 4 bytes."""
+    n_sets, n_ways = planes[0].shape[-2:]
+    return all(p.data_ptr() % ROW_ALIGN == 0 for p in planes) and (
+        n_rows == 1 or (n_sets * n_ways * 4) % ROW_ALIGN == 0)
 
 
 def hash_bits(n_lanes: int) -> int:
@@ -75,11 +98,11 @@ def fused_tlb_round(tags, asids, lru, vpn, asid, active, may_fill,
     tags/asids/lru: (sets, ways) int32 on the current CUDA device, or (R,
     sets, ways) for R independent rounds (one per row), updated in place.
     vpn/asid: (N,) (rows: (R, N)) int32; active/may_fill: (N,) (rows:
-    (R, N)) bool; N divisible by n_waves, 1 <= N <= 1024; every row's
-    planes 16-byte aligned. The rows share `time`, `n_waves` and
-    `track_asids`. Returns (tags, asids, lru, hit, filled), hit/filled
-    (N,) (rows: (R, N)) int32. Every check runs before any build or
-    launch."""
+    (R, N)) bool; N divisible by n_waves, 1 <= N <= MAX_LANES, the
+    tables within a block's shared memory (`shared_bytes`). The rows share
+    `time`, `n_waves` and `track_asids`. Returns (tags, asids, lru, hit,
+    filled), hit/filled (N,) (rows: (R, N)) int32. Every check runs before
+    any build or launch."""
     dev = tags.device
     rows = tags.dim() == 3
     if tags.dim() not in (2, 3) or vpn.dim() != tags.dim() - 1:
@@ -100,18 +123,9 @@ def fused_tlb_round(tags, asids, lru, vpn, asid, active, may_fill,
             (active, "active", torch.bool, lanes),
             (may_fill, "may_fill", torch.bool, lanes)):
         _check(t, name, dtype, shape, dev)
-        if shape is plane and t.data_ptr() % ROW_ALIGN:
-            raise ValueError(f"fused_tlb: {name}'s address is not "
-                             f"{ROW_ALIGN}-byte aligned (the kernel reads "
-                             f"rows by int4)")
     if not 1 <= R <= MAX_ROWS:
         raise ValueError(f"fused_tlb: {R} rows; one block per row takes "
                          f"1..{MAX_ROWS}")
-    if R > 1 and (n_sets * n_ways * 4) % ROW_ALIGN:
-        raise ValueError(f"fused_tlb: a row's planes are {n_sets} x "
-                         f"{n_ways} x 4 bytes, not a multiple of "
-                         f"{ROW_ALIGN}: row 1's address would not be "
-                         f"{ROW_ALIGN}-byte aligned")
     if not 1 <= N <= MAX_LANES or N % n_waves:
         raise ValueError(f"fused_tlb: lane count {N} must be in "
                          f"1..{MAX_LANES} and divisible by n_waves={n_waves}")
@@ -130,7 +144,8 @@ def fused_tlb_round(tags, asids, lru, vpn, asid, active, may_fill,
     err = _entry()(tags.data_ptr(), asids.data_ptr(), lru.data_ptr(),
                    vpn.data_ptr(), asid.data_ptr(), active.data_ptr(),
                    may_fill.data_ptr(), hit.data_ptr(), filled.data_ptr(),
-                   instance(n_ways), R, n_sets, n_ways, N, n_waves,
+                   instance(n_ways, rows_aligned((tags, asids, lru), R)),
+                   R, n_sets, n_ways, N, n_waves,
                    int(track_asids), int(time), hash_bits(N),
                    torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -6,8 +6,10 @@ The function is bound by bytes: every live K and V row is read once for
 4 G flop per 4 bytes (G query heads per KV head), so the kernel streams
 rows and does its products as FMAs on the CUDA cores. One call is two
 CUDA launches on the current stream:
-  * split: one block of 128 threads per (span of pages, KV head,
-    sequence). The span comes from `split_plan`, a pure function of the
+  * split: one block of 128 threads per (span of pages, head group, KV
+    head, sequence): a head group is at most G_MAX of the G query heads
+    of a KV head, G cut into `plan`'s equal groups. The span comes from
+    `split_plan`, a pure function of the
     page size and the block table's width (~128 tokens): the host never
     reads `seq_lens`, so a call does not synchronise. A block past the
     sequence's live pages writes the empty partial (m = -1e30, l = 0);
@@ -22,26 +24,97 @@ at the head of the CUDA source (from `nvcc -Xptxas -v`): 56 registers
 per thread and 39,444 bytes of shared memory per block, no spills, at
 the pool's shape (bf16, dh 128, G 4).
 
-`paged_attention` checks its tensors (device, dtype, shape, contiguity,
-16-byte alignment), allocates the output and the scratch with
-`torch.empty`, launches and raises if a launch failed.
-`paged_attention.launches` counts calls, so a run can show that it went
-through the kernel.
+The kernel is compiled for the head widths the models run, with one
+head group (`EXACT_WIDTHS`), and for padded widths (`PADDED_WIDTHS`,
+blocks of up to G_MAX heads), through which any other call runs: a head
+narrower than its instance reads the columns past dh as zeros. It reads
+K and V rows by 16-byte copies, so it takes tensors in place only when
+q, k_pages and v_pages are contiguous and 16-byte aligned, block_table
+and seq_lens contiguous, and dh whole 16-byte pieces (a multiple of 8 in
+bf16, 4 in fp32); any other call is staged (`plan`, `stage`): copied
+into fresh contiguous buffers, the head zero-padded, run through the same
+kernel with the scale of its true dh, and returned as the slice of its
+dh columns. `paged_attention.staged` counts such calls; the pool's own
+tensors never need it.
+
+`paged_attention` checks its tensors (device, dtype, shape), allocates
+the output and the scratch with `torch.empty`, launches and raises if a
+launch failed. `paged_attention.launches` counts calls, so a run can
+show that it went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 96, 128)    # the kernel's template instances
-G_MAX = 16                       # query heads per KV head
-GRID_MAX = 65535                 # the card's limit on grid y and z
+EXACT_WIDTHS = (32, 64, 96, 128)   # dh == the width, one head group
+PADDED_WIDTHS = (128, 192, 256)    # any other call, 16-head blocks
+HEAD_DIM_MAX = PADDED_WIDTHS[-1]
+G_MAX = 16                       # query heads of a block (a head group)
 SPLIT_TOKENS = 128               # tokens a split aims at
+ALIGN = 16                       # bytes: the kernel's copies
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Plan(NamedTuple):
+    """How a call runs: the head width the kernel reads (`dh`: the true
+    one rounded up to whole 16-byte pieces), the compiled instance, the
+    query heads of a block (`heads`) and the blocks a KV head's G heads
+    take (`groups`), and whether the inputs are first copied into fresh
+    contiguous, zero-padded buffers (`staged`)."""
+    dh: int
+    instance: int
+    heads: int
+    groups: int
+    staged: bool
+
+
+def plan(dtype, dh: int, G: int, in_place: bool = True) -> Plan:
+    """The plan of a call on tensors of `dtype`, head dim `dh` and G query
+    heads per KV head, whose layout the kernel can (`in_place`) or cannot
+    read as it lies. G is cut into ceil(G / G_MAX) groups of equal size
+    (the last may be short); dh is rounded up to whole 16-byte pieces;
+    the instance is the exact one of that width where there is one and G
+    is one group, else the narrowest padded width at or above it; a call
+    is staged where the rounding moves dh or the layout is not in place.
+    Raises
+    ValueError on a dtype the kernel does not take or a head dim above
+    HEAD_DIM_MAX."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"paged_attention: {dtype} is not one of "
+                         f"{list(_DTYPES)}")
+    if not 1 <= dh <= HEAD_DIM_MAX:
+        raise ValueError(f"paged_attention: head dim {dh} is not in 1.."
+                         f"{HEAD_DIM_MAX} (the widest instance)")
+    if G < 1:
+        raise ValueError(f"paged_attention: {G} query heads per KV head")
+    step = ALIGN // dtype.itemsize
+    dk = -(-dh // step) * step
+    groups = -(-G // G_MAX)
+    width = dk if dk in EXACT_WIDTHS and groups == 1 else \
+        min(w for w in PADDED_WIDTHS if w >= dk)
+    return Plan(dk, width, -(-G // groups), groups, dk != dh or not in_place)
+
+
+def stage(t, dh: int):
+    """A fresh contiguous copy of `t`, its last dim widened to `dh` with
+    zeros."""
+    out = t.new_zeros(tuple(t.shape[:-1]) + (dh,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def in_place(q, k_pages, v_pages, block_table, seq_lens) -> bool:
+    """Whether the kernel reads these tensors as they lie: q and the pages
+    contiguous and 16-byte aligned, the table and lengths contiguous."""
+    return all(t.is_contiguous() and t.data_ptr() % ALIGN == 0
+               for t in (q, k_pages, v_pages)) and \
+        block_table.is_contiguous() and seq_lens.is_contiguous()
 
 
 def split_plan(page, n_pages):
@@ -55,7 +128,7 @@ def split_plan(page, n_pages):
 
 def bind(fn):
     """Set the argument types of a `paged_attention_fwd` C entry point."""
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -78,13 +151,9 @@ def _check(q, k_pages, v_pages, block_table, seq_lens):
                          "dh)")
     B, H, dh = q.shape
     P, page, KV, _ = k_pages.shape
-    if k_pages.shape[3] != dh or KV < 1 or H % KV or H // KV > G_MAX:
+    if k_pages.shape[3] != dh or KV < 1 or H % KV:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not "
-                         f"match pages {tuple(k_pages.shape)} (at most "
-                         f"{G_MAX} query heads per KV head)")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"paged_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
+                         f"match pages {tuple(k_pages.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"paged_attention: block_table "
@@ -94,22 +163,18 @@ def _check(q, k_pages, v_pages, block_table, seq_lens):
                          (v_pages, "v_pages", _DTYPES),
                          (block_table, "block_table", (torch.int32,)),
                          (seq_lens, "seq_lens", (torch.int32,))):
-        if t.dtype not in dts or t.device != dev or not t.is_contiguous():
+        if t.dtype not in dts or t.device != dev:
             raise ValueError(f"paged_attention: {name} is {t.dtype} on "
-                             f"{t.device}; it must be contiguous, one of "
-                             f"{list(dts)}, on {dev}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"paged_attention: {name} is not 16-byte "
-                             f"aligned (data_ptr {t.data_ptr():#x})")
+                             f"{t.device}; it must be one of {list(dts)}, "
+                             f"on {dev}")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_attention: q, k_pages, v_pages must share "
                          "one dtype")
     if B == 0 or block_table.shape[1] == 0 or P == 0:
         raise ValueError(f"paged_attention: empty input (B={B}, P={P}, "
                          f"pages per sequence {block_table.shape[1]})")
-    if B > GRID_MAX or KV > GRID_MAX:
-        raise ValueError(f"paged_attention: B={B} or KV={KV} above the "
-                         f"grid's {GRID_MAX}")
+    return plan(q.dtype, dh, H // KV,
+                in_place(q, k_pages, v_pages, block_table, seq_lens))
 
 
 def launch_split(q, k_pages, v_pages, block_table, seq_lens, plan=None,
@@ -117,15 +182,22 @@ def launch_split(q, k_pages, v_pages, block_table, seq_lens, plan=None,
     """Check the tensors and run one call's two launches with the split
     `plan` = (pages per split, splits), by default `split_plan`'s, through
     the C entry point `entry` (a bound `paged_attention_fwd` of a build of
-    the source), by default the kernel's. Counts nothing."""
-    _check(q, k_pages, v_pages, block_table, seq_lens)
+    the source), by default the kernel's, staging the inputs where the
+    call's `Plan` says so. Returns (output, the call's `Plan`); counts
+    nothing."""
+    how = _check(q, k_pages, v_pages, block_table, seq_lens)
     entry = entry or _entry()
     B, H, dh = q.shape
     P, page, KV, _ = k_pages.shape
     pps, n_splits = plan or split_plan(page, block_table.shape[1])
+    if how.staged:
+        q, k_pages, v_pages = (stage(t, how.dh) for t in (q, k_pages,
+                                                         v_pages))
+        block_table = block_table.contiguous()
+        seq_lens = seq_lens.contiguous()
     o = torch.empty_like(q)
     rows = B * H * n_splits                 # one scratch buffer: m, l, acc
-    scratch = torch.empty(rows * (dh + 2), dtype=torch.float32,
+    scratch = torch.empty(rows * (how.instance + 2), dtype=torch.float32,
                           device=q.device)
     part_m, part_l, part_acc = scratch[:rows], scratch[rows:2 * rows], \
         scratch[2 * rows:]
@@ -133,26 +205,28 @@ def launch_split(q, k_pages, v_pages, block_table, seq_lens, plan=None,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), seq_lens.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(), o.data_ptr(),
-        B, H, KV, dh, page, block_table.shape[1], P, pps, n_splits,
-        float(1.0 / dh ** 0.5), _DTYPES[q.dtype],
-        torch.cuda.current_stream().cuda_stream)
+        B, H, KV, how.dh, how.instance, how.heads, page,
+        block_table.shape[1], P, pps, n_splits, float(1.0 / dh ** 0.5),
+        _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} (B={B}, H={H}, KV={KV}, dh={dh}, "
                            f"page={page}, P={P}, {pps} pages x {n_splits} "
-                           f"splits, {q.dtype})")
-    return o
+                           f"splits, {how}, {q.dtype})")
+    return (o[..., :dh] if how.staged else o), how
 
 
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens):
     """One-token decode attention on the card. q: (B, H, dh); k/v pages:
-    (P, page, KV, dh), q's dtype (float32 or bfloat16), dh in HEAD_DIMS,
-    H a multiple of KV with at most G_MAX query heads per KV head;
-    block_table: (B, n) int32; seq_lens: (B,) int32; all contiguous and
-    16-byte aligned on the current CUDA device. Returns (B, H, dh)."""
-    o = launch_split(q, k_pages, v_pages, block_table, seq_lens)
+    (P, page, KV, dh), q's dtype (float32 or bfloat16), dh <=
+    HEAD_DIM_MAX, H a multiple of KV; block_table: (B, n) int32;
+    seq_lens: (B,) int32; all on the current CUDA device. Returns (B, H,
+    dh) (a slice of a padded buffer when the call was staged)."""
+    o, how = launch_split(q, k_pages, v_pages, block_table, seq_lens)
     paged_attention.launches += 1
+    paged_attention.staged += how.staged
     return o
 
 
 paged_attention.launches = 0
+paged_attention.staged = 0

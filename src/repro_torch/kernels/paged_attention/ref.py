@@ -23,9 +23,12 @@ from repro_torch.kernels.paged_attention.kernel import split_plan
 NEG_INF = -1e30
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens):
+def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
+                        scale=None):
     """q: (B, H, dh); pages: (P, page, KV, dh); block_table: (B, n) int32;
-    seq_lens: (B,) int32. Returns (B, H, dh) in q's dtype."""
+    seq_lens: (B,) int32. Returns (B, H, dh) in q's dtype. The scores are
+    scaled by 1 / sqrt(dh), or by `scale` where given (a head zero-padded
+    past its true width keeps the true width's scale)."""
     B, H, dh = q.shape
     _, page, KV, _ = k_pages.shape
     n = block_table.shape[1]
@@ -34,7 +37,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens):
     k = k_pages[bt].reshape(B, n * page, KV, dh)
     v = v_pages[bt].reshape(B, n * page, KV, dh)
     qg = q.reshape(B, KV, G, dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) / (dh ** 0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float())
+    s = s / (dh ** 0.5) if scale is None else s * scale
     pos = torch.arange(n * page, device=q.device)[None, None, None, :]
     s = torch.where(pos < seq_lens[:, None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)

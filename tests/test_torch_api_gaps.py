@@ -21,6 +21,9 @@ trained on float32 frames, against the reference on the CPU.
   config, with no tensor made.
 * Every `forward_*` with an explicit no-op `constrain` is bit-equal to
   the call without it.
+* `repro_torch.core` re-exports the names `repro.core` does (the design
+  registry, the specs, the legacy design points), each the port
+  module's own object, and the registry lists the reference's designs.
 """
 import dataclasses
 import types
@@ -287,3 +290,34 @@ def test_noop_constrain_is_bit_equal(arch):
     assert torch.equal(da, db) and len(seen) > n
     for key in ca:
         assert torch.equal(ca[key], cb[key]), key
+
+
+def test_core_reexports_the_reference_names():
+    """`repro_torch.core` exports every public name of `repro.core` that
+    is not a submodule, each the object of the port's `design` or `mask`
+    module, and the two registries list the same designs."""
+    import importlib
+    import types as _types
+
+    import repro.core as j_core
+    import repro_torch.core as p_core
+    from repro_torch.core import mask as p_mask
+    # the module, which the package's `design` (the function) shadows
+    p_design = importlib.import_module("repro_torch.core.design")
+
+    def names(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), _types.ModuleType)}
+    want = names(j_core)
+    assert want == {"ALL_DESIGNS", "BypassSpec", "Design", "DesignPoint",
+                    "DramSpec", "MaskConfig", "PartitionSpec", "TokenSpec",
+                    "TranslationSpec", "design", "get_design", "list_designs",
+                    "register_design"}
+    assert names(p_core) == want
+    for n in want:
+        home = p_mask if n in ("ALL_DESIGNS", "DesignPoint", "MaskConfig",
+                               "design") else p_design
+        assert getattr(p_core, n) is getattr(home, n), n
+    assert p_core.list_designs() == j_core.list_designs()
+    assert p_core.ALL_DESIGNS == j_core.ALL_DESIGNS
+    assert p_core.design("mask").name == j_core.design("mask").name

@@ -293,8 +293,9 @@ def test_ssd_fake_branch():
     mode, args = _fake_cuda(*shapes)
     with mode, StepCounter() as c:
         got = K.ssd_intra_chunk(*args)
-        with pytest.raises(ValueError, match="head dim"):
-            K.ssd_intra_chunk(torch.empty(B, nc, Q, nh, 72, device="cuda"),
+        # past the widest hd the kernel's slices take (256)
+        with pytest.raises(ValueError, match="head dim 264"):
+            K.ssd_intra_chunk(torch.empty(B, nc, Q, nh, 264, device="cuda"),
                               *args[1:])
         with pytest.raises(ValueError, match="float32"):
             K.ssd_intra_chunk(args[0].to(torch.bfloat16), *args[1:])
@@ -328,8 +329,9 @@ def test_flash_fake_branch(dtype):
     mode, (q, k, v) = _fake_cuda(q_s, kv_s, kv_s, dtype=dtype)
     with mode, StepCounter() as c:
         o = K.flash_attention_bhsd(q, k, v, causal=True)
-        with pytest.raises(ValueError, match="head dim"):
-            K.flash_attention_bhsd(*(torch.empty(2, 8, 64, 40, dtype=dtype,
+        # past the widest instance (256)
+        with pytest.raises(ValueError, match="head dim 264"):
+            K.flash_attention_bhsd(*(torch.empty(2, 8, 64, 264, dtype=dtype,
                                                  device="cuda")
                                      for _ in range(3)))
         with pytest.raises(ValueError, match="multiples"):

@@ -9,11 +9,17 @@ on the edge shapes of the tensor-core kernel. The bf16 inputs are the
 reference's own bf16 arrays, carried bit for bit. The CUDA kernels
 themselves run only on the card (`chip_smoke.py` holds them against the
 same plain version on the same 18 cases and the edges at full length);
-here the wrapper's routing by dtype and its refusals, which come before
-any build or launch, are checked. The fp32 kernel's split-TF32 arithmetic
-is emulated on the CPU (`ref.attention_split_ref`) and held to the
-reference within 2e-5 on the sweep, a ragged 496-token shape and the
-edges; plain TF32 misses that tolerance.
+here the wrapper's routing by dtype, its plan (the compiled instance a
+head dim runs and whether a call is staged through zero-padded copies)
+and its refusals, which come before any build or launch, are checked.
+The heads the card once refused (dh 80, 100, 192, 256; H = 8 over one KV
+head) are held to the reference's Pallas kernel like the sweep, and the
+staging is shown to keep the function: the plain version on the
+zero-padded copies, with the true head's scale, sliced to dh, equals it
+on the originals. The fp32 kernel's split-TF32 arithmetic is emulated on
+the CPU (`ref.attention_split_ref`) and held to the reference within
+2e-5 on the sweep, a ragged 496-token shape, the edges and the wide
+heads; plain TF32 misses that tolerance.
 """
 import functools
 from pathlib import Path
@@ -135,12 +141,33 @@ EDGES = [(200, 4, 4, 128, True, None), (200, 8, 2, 64, True, 60),
          (129, 4, 4, 96, False, 60)]
 
 
+# The heads the card once refused, as chip_smoke.py's CONTRACT_FLASH at CPU
+# sizes: dh 80 and 100 (read through the 128-wide instances; bf16 100 is
+# staged to 104), 192 and 256 (the wide instances), H = 8 over one KV head
+WIDE = [(64, 4, 2, 80, True, None), (64, 4, 2, 100, True, 24),
+        (64, 2, 1, 192, False, None), (64, 2, 1, 256, True, None),
+        (64, 8, 1, 64, True, None), (40, 8, 1, 256, False, 24)]
+
+
 @pytest.mark.parametrize("S,H,KV,dh,causal,window", EDGES)
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_flash_attention_edges(S, H, KV, dh, causal, window, dtype):
     """On the CPU, `ops.flash_attention` equals the reference's kernel (in
     interpret mode) and its `attention_ref` at the edge shapes the card's
     kernels are held to, with the sweep's tolerances."""
+    _hold_to_reference(S, H, KV, dh, causal, window, dtype)
+
+
+@pytest.mark.parametrize("S,H,KV,dh,causal,window", WIDE)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_attention_wide_heads(S, H, KV, dh, causal, window, dtype):
+    """The heads the card once refused: `ops.flash_attention` equals the
+    reference's kernel (interpret mode) and its `attention_ref`, with the
+    sweep's tolerances."""
+    _hold_to_reference(S, H, KV, dh, causal, window, dtype)
+
+
+def _hold_to_reference(S, H, KV, dh, causal, window, dtype):
     q, k, v = _inputs(S, H, KV, dh, dtype, S + dh)
     want_kernel = jax_flash(q, k, v, causal=causal, window=window,
                             block_q=S, block_k=S, interpret=True)
@@ -191,34 +218,95 @@ def _no_build(*_):
 @pytest.mark.parametrize("case,dtype,match", [
     ("cpu", torch.bfloat16, "current CUDA device"),
     ("cpu", torch.float32, "current CUDA device"),
-    ("address", torch.bfloat16, "q's address is not 16-byte aligned"),
-    ("address", torch.float32, "q's address is not 16-byte aligned"),
-    ("stride", torch.bfloat16, "k's stride"),
-    ("stride", torch.float32, "k's stride"),
-    ("head_dim", torch.bfloat16, "head dim 80"),
-    ("head_dim", torch.float32, "head dim 80"),
+    ("address", torch.bfloat16, "current CUDA device"),
+    ("address", torch.float32, "current CUDA device"),
+    ("stride", torch.bfloat16, "current CUDA device"),
+    ("stride", torch.float32, "current CUDA device"),
+    ("head_dim", torch.bfloat16, "head dim 264"),
+    ("head_dim", torch.float32, "head dim 264"),
     ("dtype", torch.float16, "must share one of"),
 ])
 def test_wrapper_refuses_before_build(monkeypatch, case, dtype, match):
-    """`flash_attention_bhsd` raises ValueError on CPU tensors, on
-    addresses or strides off 16 bytes (TMA in bf16, 16-byte copies in
-    fp32) and on an unsupported head dim, before it builds or launches
-    anything."""
+    """`flash_attention_bhsd` raises ValueError on CPU tensors, on a head
+    dim past the widest instance (256) and on float16, before it builds
+    or launches anything. An address or a stride off 16 bytes (TMA in
+    bf16, 16-byte copies in fp32) is no longer refused: the plan stages
+    such a call through aligned copies, and on the CPU it is the device
+    that refuses it."""
     monkeypatch.setattr(kernel_mod._build, "load", _no_build)
     kernel_mod._entry.cache_clear()
-    dh = 80 if case == "head_dim" else 64
+    dh = 264 if case == "head_dim" else 64
     pad = 4 if dtype == torch.bfloat16 else 2
     q, k, v = _bhsd_views(2, 40, 4, 2, dh, dtype,
                           offset=1 if case == "address" else 0,
                           s_pad=pad if case == "stride" else 0)
     if case == "stride":     # q aligned, k's rows 136 B (bf16), 264 B apart
         q = _bhsd_views(2, 40, 4, 2, dh, dtype)[0]
+    if case in ("address", "stride"):
+        faults = [kernel_mod._stride_fault(t, n)
+                  for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+        assert any(faults)
+        assert kernel_mod.plan(dtype, dh, aligned=False).staged
     before = (flash_attention_bhsd.launches,
-              dict(flash_attention_bhsd.route_launches))
+              dict(flash_attention_bhsd.route_launches),
+              flash_attention_bhsd.staged)
     with pytest.raises(ValueError, match=match):
         flash_attention_bhsd(q, k, v, causal=True)
     assert (flash_attention_bhsd.launches,
-            flash_attention_bhsd.route_launches) == before
+            flash_attention_bhsd.route_launches,
+            flash_attention_bhsd.staged) == before
+
+
+@pytest.mark.parametrize("dtype,dh,aligned,want", [
+    (torch.bfloat16, 128, True, (128, 128, False)),   # qwen3-4b: in place
+    (torch.bfloat16, 96, True, (96, 128, False)),     # phi3-vision
+    (torch.bfloat16, 32, True, (32, 64, False)),
+    (torch.bfloat16, 80, True, (80, 128, False)),
+    (torch.bfloat16, 100, True, (104, 128, True)),    # 200 B rows: staged
+    (torch.bfloat16, 136, True, (136, 192, False)),
+    (torch.bfloat16, 192, True, (192, 192, False)),
+    (torch.bfloat16, 200, True, (200, 256, False)),
+    (torch.bfloat16, 256, True, (256, 256, False)),   # gemma-2 9b's head
+    (torch.bfloat16, 128, False, (128, 128, True)),   # strides off 16 B
+    (torch.float32, 128, True, (128, 128, False)),
+    (torch.float32, 100, True, (100, 128, False)),
+    (torch.float32, 98, True, (100, 128, True)),
+    (torch.float32, 8, True, (8, 32, False)),
+    (torch.float32, 160, True, (160, 160, False)),
+    (torch.float32, 256, True, (256, 256, False)),
+    (torch.float32, 64, False, (64, 64, True)),
+])
+def test_plan_picks_instance_and_staging(dtype, dh, aligned, want):
+    """The plan of a call: the head rounded up to whole 16-byte pieces,
+    read through the narrowest instance at or above it (bf16: 64, 128,
+    192, 256; fp32: every multiple of 32), staged where the rounding
+    moves dh or the layout is off 16 bytes."""
+    assert tuple(kernel_mod.plan(dtype, dh, aligned)) == want
+    assert want[1] in kernel_mod.INSTANCES[kernel_mod.route(dtype)]
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 100),
+                                      (torch.bfloat16, 36),
+                                      (torch.float32, 98),
+                                      (torch.float32, 30)])
+def test_staging_keeps_the_function(dtype, dh):
+    """A staged call's copies: the plain version on the zero-padded
+    tensors, at the true head's scale, sliced to dh, equals the plain
+    version on the originals; the padded columns come out 0."""
+    how = kernel_mod.plan(dtype, dh)
+    assert how.staged and how.dh > dh
+    q, k, v = (t.transpose(1, 2).to(dtype) for t in
+               _port(*_inputs(48, 4, 2, dh, jnp.float32, dh)))
+    padded = [kernel_mod.stage(t, how.dh) for t in (q, k, v)]
+    for t, p in zip((q, k, v), padded):
+        assert p.is_contiguous() and p.shape[-1] == how.dh
+        assert torch.equal(p[..., :dh], t) and not p[..., dh:].any()
+    want = ref_mod.attention_ref(q, k, v, causal=True, window=20)
+    got = ref_mod.attention_ref(*padded, causal=True, window=20,
+                                scale=1.0 / dh ** 0.5)
+    assert not got[..., dh:].any()
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got[..., :dh], want, atol=tol, rtol=tol)
 
 
 def test_tma_strides_of_the_model_layout():
@@ -244,7 +332,7 @@ SPLIT_CASES = (
      for causal, window in [(True, None), (False, None), (True, 96)]]
     + [(496, 4, 2, 128, True, None, 512, 512, 1)]
     + [(S, H, KV, dh, causal, window, S, S, S + dh)
-       for S, H, KV, dh, causal, window in EDGES])
+       for S, H, KV, dh, causal, window in EDGES + WIDE])
 
 
 def _split_port(case):

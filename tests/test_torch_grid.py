@@ -37,7 +37,9 @@ from repro.sim import memsys as ref_ms  # noqa: E402
 from repro.sim import workloads as ref_wl  # noqa: E402
 from repro.sim.config import SimConfig as RefConfig  # noqa: E402
 from repro_torch.core import bypass as pt_bp  # noqa: E402
-from repro_torch.core import design as pt_design  # noqa: E402
+# `repro_torch.core.design` the module: the package binds the name to
+# the `design` function, as `repro.core` does
+pt_design = importlib.import_module("repro_torch.core.design")
 from repro_torch.core import dram_sched as pt_dram  # noqa: E402
 from repro_torch.core import mask as pt_mask  # noqa: E402
 from repro_torch.core import tlb as pt_tlb  # noqa: E402
@@ -179,17 +181,22 @@ def _no_build(*_):
 
 
 @pytest.mark.parametrize("shape,match", [
-    ((2, 1, 2), "not a multiple of 16"),          # 8-byte row stride
-    ((2, 3, 1), "not a multiple of 16"),
+    ((2, 1, 2), "current CUDA device"),           # 8-byte row stride
+    ((2, 3, 1), "current CUDA device"),
 ])
 def test_kernel_wrapper_refuses_misaligned_rows(monkeypatch, shape, match):
     """Row r's planes start r * sets * ways * 4 bytes in: a stride off 16
-    bytes is refused with ValueError before any build or launch."""
+    bytes is no longer refused but runs the instance that reads words
+    (`instance` 0). What still raises ValueError before any build or
+    launch: planes off the card (the CPU tensors here) and lanes whose
+    rows do not match the planes'."""
     monkeypatch.setattr(kernel_mod._build, "load", _no_build)
     kernel_mod._entry.cache_clear()
     z = torch.zeros(shape, dtype=torch.int32)
     v = torch.zeros((shape[0], 4), dtype=torch.int32)
     b = torch.zeros((shape[0], 4), dtype=torch.bool)
+    assert not kernel_mod.rows_aligned((z, z, z), shape[0])
+    assert kernel_mod.instance(shape[-1], False) == 0
     before = kernel_mod.fused_tlb_round.launches
     with pytest.raises(ValueError, match=match):
         kernel_mod.fused_tlb_round(z, z, z, v, v, b, b, 0)

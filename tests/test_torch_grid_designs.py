@@ -37,7 +37,9 @@ from repro.core import dram_sched as ref_dram  # noqa: E402
 from repro.core import mask as ref_mask  # noqa: E402
 from repro.core import tokens as ref_tok  # noqa: E402
 from repro.sim import runner as ref_runner  # noqa: E402
-from repro_torch.core import design as pt_design  # noqa: E402
+# `repro_torch.core.design` the module: the package binds the name to
+# the `design` function, as `repro.core` does
+pt_design = importlib.import_module("repro_torch.core.design")
 from repro_torch.core import dram_sched as pt_dram  # noqa: E402
 from repro_torch.core import tokens as pt_tok  # noqa: E402
 from repro_torch.kernels.fused_tlb import ops as fused_ops  # noqa: E402

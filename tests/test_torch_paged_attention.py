@@ -20,7 +20,12 @@ splits it (`kernel.split_plan`'s spans, each span's own max, the ordered
 merge of the partials); it is held to the same two references at the
 same tolerances, on the sweep and on cases that stress the split (page
 sizes 5 and 1, 1 and 40 pages per sequence, lengths at a split boundary
-and one past it, a length 0 among live sequences, G 12 and 16, dh 96).
+and one past it, a length 0 among live sequences, G 12 and 16, dh 96),
+and on the inputs the card once refused (G 32 and 71 over one KV head,
+dh 80, 100 and 256). The kernel's wrapper is checked here for its plan
+(instance, head groups, staging) and its refusals; staging is shown to
+keep the function (the plain version on zero-padded copies at the true
+head's scale, sliced to dh, equals it on the originals).
 """
 import numpy as np
 import pytest
@@ -39,8 +44,8 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.paged_attention import \
     kernel as pt_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pt_ops  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import \
-    paged_attention_split_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref, paged_attention_split_ref)
 from repro_torch.models.convert import (  # noqa: E402
     tensor_from_numpy, tensor_to_numpy)
 
@@ -92,10 +97,32 @@ SPLIT_CASES = [
 ]
 
 
+# the inputs the card once refused, as chip_smoke.py's CONTRACT_PAGED at
+# CPU sizes: G 32 and 71 (Falcon-7B) over one KV head, 142 heads over 2,
+# dh 256 (gemma-2 9b), 80, and 100 (bf16: staged to 104)
+WIDE = [(2, 32, 1, 64, 8, 3), (2, 71, 1, 32, 8, 3), (2, 142, 2, 32, 4, 4),
+        (2, 8, 2, 256, 8, 3), (2, 8, 2, 80, 8, 3), (2, 8, 2, 100, 8, 3)]
+
+
 @pytest.mark.parametrize("B,H,KV,dh,page,npp", SWEEP)
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_paged_attention_sweep(B, H, KV, dh, page, npp, dtype):
-    arrays = _inputs(B, H, KV, dh, page, npp, dtype)
+    _hold_to_reference(_inputs(B, H, KV, dh, page, npp, dtype), dtype)
+
+
+@pytest.mark.parametrize("B,H,KV,dh,page,npp", WIDE)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_paged_attention_wide_groups_and_heads(B, H, KV, dh, page, npp,
+                                               dtype):
+    """The groups and heads the card once refused: the port's op equals
+    the reference's Pallas kernel (interpret mode) and its plain version
+    at the sweep's tolerances."""
+    _hold_to_reference(_inputs(B, H, KV, dh, page, npp, dtype), dtype)
+
+
+def _hold_to_reference(arrays, dtype):
+    B, H, _ = arrays[0].shape
+    dh = arrays[0].shape[2]
     got = pt_ops.paged_attention(*_port(*arrays))
     assert tuple(got.shape) == (B, H, dh)
     assert got.dtype == (torch.float32 if dtype == jnp.float32
@@ -137,15 +164,92 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("arch", sorted(
     name for name, cfg in ARCHS.items() if not cfg.is_attention_free))
 def test_attention_kernels_take_every_config(arch):
-    """Every model config with attention has a head dim that both flash
-    kernels and the paged kernel take, and a GQA group (H / KV) within
-    the paged kernel's G_MAX: the card refuses no shape the reference
-    computes for the repo's configs."""
+    """Every model config with attention runs in place on both flash
+    kernels and the paged kernel, in both dtypes: its head dim plans onto
+    a compiled instance with no staging, and its GQA group (H / KV) onto
+    head groups of at most G_MAX that cover it."""
     cfg = ARCHS[arch]
-    assert cfg.head_dim in flash_kernel.HEAD_DIMS
-    assert cfg.head_dim in pt_kernel.HEAD_DIMS
     assert cfg.n_heads % cfg.n_kv_heads == 0
-    assert cfg.n_heads // cfg.n_kv_heads <= pt_kernel.G_MAX
+    G = cfg.n_heads // cfg.n_kv_heads
+    for dtype in (torch.bfloat16, torch.float32):
+        fp = flash_kernel.plan(dtype, cfg.head_dim)
+        assert not fp.staged and fp.dh == cfg.head_dim <= fp.instance
+        pp = pt_kernel.plan(dtype, cfg.head_dim, G)
+        assert not pp.staged and pp.dh == cfg.head_dim <= pp.instance
+        assert pp.heads <= pt_kernel.G_MAX
+        assert (pp.groups - 1) * pp.heads < G <= pp.groups * pp.heads
+
+
+@pytest.mark.parametrize("dtype,dh,G,in_place,want", [
+    (torch.bfloat16, 128, 4, True, (128, 128, 4, 1, False)),   # the pool
+    (torch.bfloat16, 96, 16, True, (96, 96, 16, 1, False)),
+    (torch.bfloat16, 128, 12, True, (128, 128, 12, 1, False)),
+    (torch.bfloat16, 128, 32, True, (128, 128, 16, 2, False)),
+    (torch.bfloat16, 64, 71, True, (64, 128, 15, 5, False)),   # falcon-7b
+    (torch.bfloat16, 256, 2, True, (256, 256, 2, 1, False)),   # gemma-2 9b
+    (torch.bfloat16, 80, 4, True, (80, 128, 4, 1, False)),
+    (torch.bfloat16, 100, 4, True, (104, 128, 4, 1, True)),
+    (torch.bfloat16, 136, 17, True, (136, 192, 9, 2, False)),
+    (torch.bfloat16, 128, 4, False, (128, 128, 4, 1, True)),
+    (torch.float32, 100, 4, True, (100, 128, 4, 1, False)),
+    (torch.float32, 98, 1, True, (100, 128, 1, 1, True)),
+    (torch.float32, 8, 1, True, (8, 128, 1, 1, False)),
+    (torch.float32, 32, 1, False, (32, 32, 1, 1, True)),
+])
+def test_plan_picks_instance_groups_and_staging(dtype, dh, G, in_place,
+                                                want):
+    """The plan of a call: the head rounded up to whole 16-byte pieces,
+    the exact instance of that width where there is one and G is one
+    group, else the narrowest padded width at or above it; G cut into
+    ceil(G / 16) groups of equal size (the last may be short); staged
+    where the rounding moves dh or the tensors are not contiguous and
+    aligned."""
+    assert tuple(pt_kernel.plan(dtype, dh, G, in_place)) == want
+    assert want[1] in (pt_kernel.PADDED_WIDTHS if want[3] > 1 or
+                       want[0] not in pt_kernel.EXACT_WIDTHS
+                       else pt_kernel.EXACT_WIDTHS)
+
+
+@pytest.mark.parametrize("dh,match", [(264, "head dim 264"),
+                                      (0, "head dim 0")])
+def test_plan_refuses_past_the_widest_instance(dh, match):
+    with pytest.raises(ValueError, match=match):
+        pt_kernel.plan(torch.bfloat16, dh, 4)
+    with pytest.raises(ValueError, match="float16"):
+        pt_kernel.plan(torch.float16, 64, 4)
+
+
+@pytest.mark.parametrize("dtype,dh", [(jnp.bfloat16, 100), (jnp.float32, 98),
+                                      (jnp.bfloat16, 36)])
+def test_staging_keeps_the_function(dtype, dh):
+    """A staged call's copies: the plain version on the zero-padded q and
+    pages, at the true head's scale, sliced to dh, equals the plain
+    version on the originals; the padded columns come out 0."""
+    q, kp, vp, bt, sl = _port(*_inputs(3, 8, 2, dh, 8, 4, dtype))
+    how = pt_kernel.plan(q.dtype, dh, 4)
+    assert how.staged and how.dh > dh
+    padded = [pt_kernel.stage(t, how.dh) for t in (q, kp, vp)]
+    for t, p in zip((q, kp, vp), padded):
+        assert p.is_contiguous() and torch.equal(p[..., :dh], t)
+        assert not p[..., dh:].any()
+    want = pt_ops.paged_attention(q, kp, vp, bt, sl)
+    got = paged_attention_ref(*padded, bt, sl, scale=1.0 / dh ** 0.5)
+    assert not got[..., dh:].any()
+    tol = 1e-6 if dtype == jnp.float32 else 2.0 ** -8
+    torch.testing.assert_close(got[..., :dh], want, atol=tol, rtol=tol)
+
+
+def test_in_place_needs_contiguous_aligned_tensors():
+    """The kernel reads q and the pages as they lie only when contiguous
+    and 16-byte aligned, and the table and lengths when contiguous."""
+    q, kp, vp, bt, sl = _port(*_inputs(3, 8, 2, 64, 8, 4, jnp.float32))
+    assert pt_kernel.in_place(q, kp, vp, bt, sl)
+    odd = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    wide = torch.zeros(3, 8, 72)[..., :64]
+    for args in ((odd, kp, vp, bt, sl), (wide, kp, vp, bt, sl),
+                 (q, kp, vp, bt.t().contiguous().t(), sl),
+                 (q, kp.transpose(0, 1), vp, bt, sl)):
+        assert not pt_kernel.in_place(*args)
 
 
 def _split_inputs(B, H, KV, dh, page, npp, lens, dtype):
@@ -180,7 +284,7 @@ def _hold_split_ref(arrays, dtype):
     assert np.all(got[~live] == 0)
 
 
-@pytest.mark.parametrize("B,H,KV,dh,page,npp", SWEEP)
+@pytest.mark.parametrize("B,H,KV,dh,page,npp", SWEEP + WIDE)
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_split_ref_sweep(B, H, KV, dh, page, npp, dtype):
     _hold_split_ref(_inputs(B, H, KV, dh, page, npp, dtype), dtype)

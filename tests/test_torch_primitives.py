@@ -20,7 +20,9 @@ from repro.core import mask as ref_mask  # noqa: E402
 from repro.core import page_table as ref_pt  # noqa: E402
 from repro.sim import config as ref_config  # noqa: E402
 from repro.sim import workloads as ref_wl  # noqa: E402
-from repro_torch.core import design as pt_design  # noqa: E402
+# `repro_torch.core.design` the module: the package binds the name to
+# the `design` function, as `repro.core` does
+pt_design = importlib.import_module("repro_torch.core.design")
 from repro_torch.core import mask as pt_mask  # noqa: E402
 from repro_torch.core import page_table as pt_pt  # noqa: E402
 from repro_torch.sim import config as pt_config  # noqa: E402

@@ -26,7 +26,9 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 from repro.sim import runner as ref_runner  # noqa: E402
-from repro_torch.core import design as pt_design  # noqa: E402
+# `repro_torch.core.design` the module: the package binds the name to
+# the `design` function, as `repro.core` does
+pt_design = importlib.import_module("repro_torch.core.design")
 from repro_torch.sim import runner  # noqa: E402
 from repro_torch.sim import workloads as pt_wl  # noqa: E402
 from tests.test_torch_grid_designs import _plane  # noqa: E402

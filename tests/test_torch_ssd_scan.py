@@ -11,7 +11,11 @@ kernel runs only on the card (`chip_smoke.py` phase 8 holds it against
 the same plain version). Its arithmetic, split-TF32 products
 (`ref.ssd_intra_chunk_split_ref`), is held here to the reference at the
 same 1e-4, and at a reduced serving shape to `ref.ssd_limits`, the
-limit `chip_smoke.py` holds the kernel to at the serving shape.
+limit `chip_smoke.py` holds the kernel to at the serving shape. The
+widths the card once refused (hd 128 and 100, ds 256 and 200, past the
+kernel's 64 x 128 tiles; `WIDE`) are held to the reference the same way,
+and the wrapper's plan (tile slices, instance, staging) and refusals are
+checked.
 """
 import numpy as np
 import pytest
@@ -33,6 +37,9 @@ TOL = 1e-4
 CASES = [(64, 4, 16, 16, 16), (128, 8, 32, 16, 32), (96, 2, 64, 32, 32),
          (40, 2, 16, 16, 10),      # ragged: Q = 10
          (496, 2, 16, 16, 248)]    # ragged: Q = 248, four 64-row tiles
+# past the tiles: hd in slices of 64, ds in slices of 128
+WIDE = [(128, 2, 128, 256, 64), (96, 3, 100, 200, 48), (64, 2, 256, 16, 32),
+        (64, 2, 16, 256, 64)]
 
 
 @pytest.fixture(autouse=True)
@@ -71,7 +78,7 @@ def test_ssd_scan_matches_reference(S, nh, hd, ds, chunk):
         _close(h, want_h)
 
 
-@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES)
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES + WIDE)
 def test_ssd_intra_chunk_matches_reference_kernel(S, nh, hd, ds, chunk):
     x, dt, A, B, C = _inputs(S, nh, hd, ds)
     nc = S // chunk
@@ -97,8 +104,8 @@ def test_recurrence_ref_matches_reference(S, nh, hd, ds, chunk):
 
 def test_shape_contract():
     """S must be a multiple of the chunk, as the reference asserts; the
-    kernel's wrapper refuses CPU tensors (no fallback) and widths past its
-    tiles."""
+    kernel's wrapper refuses CPU tensors (no fallback), and its plan
+    widths past 256 and a chunk past Q_MAX, before any launch."""
     x, dt, A, B, C = map(torch.from_numpy, _inputs(64, 4, 16, 16))
     with pytest.raises(ValueError, match="not a multiple"):
         pt_ops.ssd_scan(x, dt, A, B, C, chunk=24)
@@ -108,9 +115,31 @@ def test_shape_contract():
     with pytest.raises(ValueError, match="current CUDA device"):
         pt_kernel.ssd_intra_chunk(xc, dAc, Bc, Bc)
     assert pt_kernel.ssd_intra_chunk.launches == 0
+    for hd, ds, Q, match in ((264, 16, 8, "head dim 264"),
+                             (16, 257, 8, "state dim 257"),
+                             (16, 16, pt_kernel.Q_MAX + 1, "chunk 30657")):
+        with pytest.raises(ValueError, match=match):
+            pt_kernel.plan(hd, ds, Q)
 
 
-@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES)
+@pytest.mark.parametrize("hd,ds,Q,contiguous,want", [
+    (64, 128, 256, True, (1, 1, False, False, False)),   # mamba2 serving
+    (18, 10, 20, True, (1, 1, False, False, False)),
+    (64, 128, 1040, True, (1, 1, False, True, False)),
+    (128, 256, 256, True, (2, 2, True, False, False)),
+    (100, 200, 300, True, (2, 2, True, False, False)),
+    (256, 256, 1040, True, (4, 2, True, True, False)),
+    (64, 129, 64, True, (1, 2, True, False, False)),
+    (64, 128, 256, False, (1, 1, False, False, True)),
+])
+def test_plan_slices_and_staging(hd, ds, Q, contiguous, want):
+    """The plan of a call: one block per 64 columns of hd, a loop over
+    128 columns of ds, the WIDE instance where either slices, the cs
+    windows past 768 rows, a copy of non-contiguous inputs."""
+    assert tuple(pt_kernel.plan(hd, ds, Q, contiguous)) == want
+
+
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", CASES + WIDE)
 def test_split_tf32_matches_reference_kernel(S, nh, hd, ds, chunk):
     """The CUDA kernel's arithmetic (each product in split TF32, emulated
     on the CPU) meets the reference's 1e-4 on the sweep."""

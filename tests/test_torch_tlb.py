@@ -4,8 +4,11 @@
 reference over seeded request streams. The plain fused round
 (`access_fused` on CPU tensors) is held against the reference's XLA path
 and its Pallas kernel in interpret mode, at the kernel-test shapes, at
-both main-path shapes with negative (int32-wrapped) tags, and on the
-write-collision case. Everything is exact.
+both main-path shapes with negative (int32-wrapped) tags, on the
+write-collision case, at more lanes than a thread block has threads
+(1056: 132 cores' lanes; 2048) and on rows of (3, 5) planes at R = 2.
+Everything is exact. The CUDA wrapper's plan (the instance by way count
+and row alignment, lanes per thread) and its refusals are checked too.
 """
 import numpy as np
 import pytest
@@ -250,6 +253,43 @@ def test_fused_round_chained_rounds(sets, ways, N, W):
         planes = dict(zip(("tags", "asids", "lru"), got[:3]))
 
 
+# more lanes than threads: the kernel's wide instances (lanes t, t + 1024)
+WIDE_SHAPES = [(1024, 16, 2048, 8), (64, 16, 1056, 4)]
+
+
+@pytest.mark.parametrize("sets,ways,N,W", WIDE_SHAPES)
+@pytest.mark.parametrize("interpret", [False, True])
+def test_fused_round_wide_lanes(sets, ways, N, W, interpret):
+    """2048 and 1056 lanes: the plain round equals the reference's XLA
+    path and its Pallas kernel (interpret mode) bit for bit."""
+    _check(_path_case(sets, ways, N, W, "half", seed=N + W), W, False,
+           interpret)
+
+
+@pytest.mark.parametrize("track_asids", [True, False])
+def test_fused_round_rows_of_unaligned_planes(track_asids):
+    """Two rows of (3, 5) planes (60-byte rows, off 16-byte alignment from
+    row 1 on, where the card's word-reading instance runs): the port's
+    row-axis round equals the reference's kernel (interpret mode) run on
+    each row alone."""
+    rows = [_kernel_test_case(3, 5, 24, 6)]
+    rng = np.random.RandomState(35)
+    rows.append({k: (rng.permutation(v.reshape(-1)).reshape(v.shape)
+                     if isinstance(v, np.ndarray) else v)
+                 for k, v in rows[0].items()})
+    keys = ("tags", "asids", "lru", "vpn", "asid", "active", "may_fill")
+    t = {k: torch.tensor(np.stack([r[k] for r in rows])) for k in keys}
+    got = pt_ops.fused_tlb_access(*(t[k] for k in keys), 77, n_waves=6,
+                                  track_asids=track_asids)
+    assert got[0].shape == (2, 3, 5) and got[3].shape == (2, 24)
+    for r, case in enumerate(rows):
+        want = _run_ref(case, 6, track_asids, interpret=True)
+        for a, b, name in zip(got, want, ("tags", "asids", "lru", "hit",
+                                          "filled")):
+            np.testing.assert_array_equal(a[r].numpy(), b,
+                                          err_msg=f"row {r} {name}")
+
+
 @pytest.mark.parametrize("order,tag0,hit,filled", [
     ([8, 100], 100, [1, 0], [0, 1]),    # the winner (lane 1) owns way 0
     ([100, 8], 8, [0, 1], [1, 0]),      # the pre-hit (lane 1) owns way 0
@@ -310,6 +350,46 @@ def test_kernel_instance_by_way_count(n_ways, want):
     assert kernel_mod.instance(n_ways) == want
 
 
+@pytest.mark.parametrize("shape,offset,want", [
+    ((1024, 16), 0, 16),          # the L2 planes: 16-byte rows
+    ((2, 1024, 16), 0, 16),
+    ((1024, 16), 1, 0),           # a plane 4 bytes off: word by word
+    ((3, 5), 0, 0),               # 5 ways: always the run-time instance
+    ((2, 3, 5), 0, 0),
+])
+def test_kernel_instance_by_alignment(shape, offset, want):
+    """The 16-way instance reads rows by 16-byte loads, so it runs only on
+    planes whose every row is 16-byte aligned; any other layout runs the
+    instance that reads words."""
+    n = int(np.prod(shape))
+    planes = [torch.zeros(n + offset, dtype=torch.int32)[offset:]
+              .view(shape) for _ in range(3)]
+    R = shape[0] if len(shape) == 3 else 1
+    aligned = kernel_mod.rows_aligned(planes, R)
+    assert aligned == (offset == 0 and (R == 1 or shape[-1] * shape[-2] % 4
+                                        == 0))
+    assert kernel_mod.instance(shape[-1], aligned) == want
+
+
+@pytest.mark.parametrize("N,want", [(1, 1), (240, 1), (1024, 1), (1025, 8),
+                                    (1056, 8), (2048, 8), (8192, 8)])
+def test_kernel_lanes_per_thread(N, want):
+    """Up to 1024 lanes a thread each; more run the wide instance, 1024
+    threads taking lanes t, t + 1024, ... (up to MAX_LANES = 8192)."""
+    assert kernel_mod.lanes_per_thread(N) == want
+    assert N <= kernel_mod.MAX_LANES
+
+
+@pytest.mark.parametrize("sets,ways,N,W", [(1024, 16, 1056, 8),
+                                           (1024, 16, 2048, 8),
+                                           (64, 16, 8192, 8)])
+def test_kernel_shared_memory_admits_wide_lanes(sets, ways, N, W):
+    """The wide rounds' tables (owner hash of at least 2 entries a lane)
+    fit a block's shared memory."""
+    assert 2 ** kernel_mod.hash_bits(N) >= 2 * N
+    assert kernel_mod.shared_bytes(sets, W, N) <= kernel_mod.MAX_SMEM
+
+
 # every round the repo runs: the main path's L2 (and under `ideal`) and
 # PWC rounds, the reference kernel test's shapes, the collision case
 REPO_SHAPES = PATH_SHAPES + [(1, 64, 30, 1), (32, 16, 30, 3), (64, 8, 64, 4),
@@ -333,8 +413,10 @@ def _no_build(*_):
 
 @pytest.mark.parametrize("plane", ["tags", "asids", "lru"])
 def test_kernel_wrapper_refuses_misaligned_planes(monkeypatch, plane):
-    """The kernel reads rows by 16-byte loads: a plane off 16-byte
-    alignment is refused with ValueError before any build or launch."""
+    """A plane off 16-byte alignment is no longer refused: it runs the
+    instance that reads words (`instance` gives 0 for its 16 ways). What
+    still raises, before any build or launch, is a plane that does not
+    lie on the card: the CPU tensors here."""
     monkeypatch.setattr(kernel_mod._build, "load", _no_build)
     kernel_mod._entry.cache_clear()
     planes = {k: torch.zeros((4, 16), dtype=torch.int32)
@@ -343,9 +425,10 @@ def test_kernel_wrapper_refuses_misaligned_planes(monkeypatch, plane):
         .view(4, 16)
     v = torch.zeros(8, dtype=torch.int32)
     b = torch.zeros(8, dtype=torch.bool)
+    assert not kernel_mod.rows_aligned(list(planes.values()), 1)
+    assert kernel_mod.instance(16, False) == 0
     before = fused_tlb_round.launches
-    with pytest.raises(ValueError, match=f"{plane}'s address is not "
-                                         "16-byte aligned"):
+    with pytest.raises(ValueError, match="current CUDA device"):
         fused_tlb_round(planes["tags"], planes["asids"], planes["lru"], v, v,
                         b, b, 0)
     assert fused_tlb_round.launches == before
