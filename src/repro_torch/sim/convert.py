@@ -27,6 +27,7 @@ from repro_torch.core.tlb import TLBState
 from repro_torch.core.tokens import TokenState
 from repro_torch.sim.memsys import (DataState, SimState, StatState,
                                    TransState, map_state)
+from repro_torch.spans import span
 
 # NamedTuple fields that are subtrees, by owning type
 _SUBTREES = {
@@ -71,8 +72,18 @@ def state_from_numpy(tree, device) -> SimState:
 def state_to_numpy(state: SimState, row: Optional[int] = None) -> SimState:
     """The port's SimState -> the same NamedTuples with numpy leaves: the
     whole state, or row `row` of a state with a row axis (then shaped as
-    the reference's)."""
-    return _to_numpy(state if row is None else row_of(state, row))
+    the reference's). Each leaf is one synchronous copy; a pass's state
+    has 51. Under the profiler the span `sim.to_host` carries the bytes
+    copied and the copies made."""
+    with span("sim.to_host") as attrs:
+        tree = state if row is None else row_of(state, row)
+        if attrs is not None:
+            leaves: list = []
+            map_state(leaves.append, tree)
+            attrs["bytes"] = sum(x.numel() * x.element_size()
+                                 for x in leaves)
+            attrs["copies"] = len(leaves)
+        return _to_numpy(tree)
 
 
 def tlb_from_numpy(tree, device) -> TLBState:

@@ -13,7 +13,10 @@ reference:
                           a cycle's walk and data lanes;
   translation_commit   -- walk latencies, walk-table install;
   accumulate_stats     -- the packed per-app counter planes;
-plus warp retire and epoch maintenance.
+plus warp retire and epoch maintenance. Under the torch profiler `step`
+and each of its stages is a span of `repro_torch.spans` (`sim.step`,
+`sim.step.sched` ... `sim.step.epoch`); with no profiler they cost a
+flag read.
 
 State is NamedTuples of tensors with the reference's fields, in the
 reference's order (`sim/convert.py` carries states across). The cycle
@@ -61,6 +64,7 @@ from repro_torch.core.mask import static_partition_index
 from repro_torch.core.page_table import _mix, u32, wrap_i32
 from repro_torch.sim.config import SimConfig
 from repro_torch.sim.workloads import FIELD, gen_vpn
+from repro_torch.spans import span
 
 DATA_WIDTH = 4           # divergent cache lines per memory instruction
 BIG = 1 << 30
@@ -240,33 +244,34 @@ def init_state(cfg: SimConfig, dp: DesignParams,
     state (no row axis); `rows=R` gives R rows, each tensor (R, ...) and
     contiguous, identical but for each row's InitialTokens where `dp`
     gives `initial_frac` per row (an (R,) tensor)."""
-    W, dev = cfg.total_warps, cfg.device
-    frac = dp.initial_frac
-    per_row = isinstance(frac, torch.Tensor)
-    if per_row and rows is None:
-        raise ValueError("per-row design knobs need a state with rows")
-    st = SimState(
-        t=torch.zeros((), dtype=I32, device=dev),
-        stall_until=torch.zeros(W, dtype=I32, device=dev),
-        instr=torch.zeros(W, dtype=torch.float32, device=dev),
-        pos=torch.zeros(W, dtype=I32, device=dev),
-        trans=init_trans(cfg),
-        data=init_data(cfg),
-        # per-row InitialTokens are set once the rows exist, below
-        tokens=tok_mod.init(cfg.n_apps, _consts(cfg).warps_per_app,
-                            np.float32(0) if per_row else frac),
-        stats=init_stats(cfg.n_apps, dev),
-        asid_of_app=torch.arange(cfg.n_apps, dtype=I32, device=dev),
-    )
-    if rows is None:
+    with span("sim.init_state"):
+        W, dev = cfg.total_warps, cfg.device
+        frac = dp.initial_frac
+        per_row = isinstance(frac, torch.Tensor)
+        if per_row and rows is None:
+            raise ValueError("per-row design knobs need a state with rows")
+        st = SimState(
+            t=torch.zeros((), dtype=I32, device=dev),
+            stall_until=torch.zeros(W, dtype=I32, device=dev),
+            instr=torch.zeros(W, dtype=torch.float32, device=dev),
+            pos=torch.zeros(W, dtype=I32, device=dev),
+            trans=init_trans(cfg),
+            data=init_data(cfg),
+            # per-row InitialTokens are set once the rows exist, below
+            tokens=tok_mod.init(cfg.n_apps, _consts(cfg).warps_per_app,
+                                np.float32(0) if per_row else frac),
+            stats=init_stats(cfg.n_apps, dev),
+            asid_of_app=torch.arange(cfg.n_apps, dtype=I32, device=dev),
+        )
+        if rows is None:
+            return st
+        if rows < 1:
+            raise ValueError(f"rows must be >= 1, got {rows}")
+        st = map_state(lambda x: x.repeat(rows, *(1,) * x.dim()), st)
+        if per_row:
+            tok = tok_mod.init(cfg.n_apps, _consts(cfg).warps_per_app, frac)
+            st = st._replace(tokens=st.tokens._replace(tokens=tok.tokens))
         return st
-    if rows < 1:
-        raise ValueError(f"rows must be >= 1, got {rows}")
-    st = map_state(lambda x: x.repeat(rows, *(1,) * x.dim()), st)
-    if per_row:
-        tok = tok_mod.init(cfg.n_apps, _consts(cfg).warps_per_app, frac)
-        st = st._replace(tokens=st.tokens._replace(tokens=tok.tokens))
-    return st
 
 
 def _some(knob) -> bool:
@@ -840,32 +845,43 @@ def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
         out = step(cfg, dp, params_mat[None],
                    map_state(lambda x: x[None], state), cycle)
         return map_state(lambda x: x[0], out)
-    t = cycle + 1
-    sched = warp_sched(cfg, params_mat, state.stall_until, state.pos, t,
-                       asid_of_app=state.asid_of_app)
-    trans_st, probe = translation_probe(cfg, dp, state.trans, state.tokens,
-                                        sched, t)
-    dfront = datapath_front(cfg, params_mat, sched, t)
-    data_st, mem = shared_memory_access(
-        cfg, dp, state.data, sched.app, probe.walk_lines, probe.walk_go,
-        probe.walk_tags, dfront.lines, dfront.go_l2d, t)
-    trans_st, tout = translation_commit(cfg, trans_st, probe, mem, sched, t)
-    dout = _data_out(cfg, dfront, mem)
-
-    gap = params_mat[:, sched.app, FIELD["gap"]]
-    total_lat = tout.trans_lat + dout.data_lat + gap
-    stall_until, instr, pos = retire(
-        state.stall_until, state.instr, state.pos, sched, total_lat, gap, t)
-
-    tokens = tok_mod.record(state.tokens, sched.app, tout.l2_hit_eff,
-                            tout.l1_miss)
-    stats = accumulate_stats(state.stats, cfg.n_apps, sched, tout, dout, t)
-    tokens, data_st = epoch_maintenance(cfg, dp, state.trans, tokens,
-                                        data_st, t)
-
-    return SimState(t=state.t + 1, stall_until=stall_until, instr=instr,
-                    pos=pos, trans=trans_st, data=data_st, tokens=tokens,
-                    stats=stats, asid_of_app=state.asid_of_app)
+    with span("sim.step"):
+        with span("sim.step.sched"):
+            t = cycle + 1
+            sched = warp_sched(cfg, params_mat, state.stall_until, state.pos,
+                               t, asid_of_app=state.asid_of_app)
+        with span("sim.step.probe"):
+            trans_st, probe = translation_probe(cfg, dp, state.trans,
+                                                state.tokens, sched, t)
+        with span("sim.step.front"):
+            dfront = datapath_front(cfg, params_mat, sched, t)
+        with span("sim.step.memory"):
+            data_st, mem = shared_memory_access(
+                cfg, dp, state.data, sched.app, probe.walk_lines,
+                probe.walk_go, probe.walk_tags, dfront.lines, dfront.go_l2d,
+                t)
+        with span("sim.step.commit"):
+            trans_st, tout = translation_commit(cfg, trans_st, probe, mem,
+                                                sched, t)
+        with span("sim.step.retire"):
+            dout = _data_out(cfg, dfront, mem)
+            gap = params_mat[:, sched.app, FIELD["gap"]]
+            total_lat = tout.trans_lat + dout.data_lat + gap
+            stall_until, instr, pos = retire(
+                state.stall_until, state.instr, state.pos, sched, total_lat,
+                gap, t)
+            tokens = tok_mod.record(state.tokens, sched.app,
+                                    tout.l2_hit_eff, tout.l1_miss)
+        with span("sim.step.stats"):
+            stats = accumulate_stats(state.stats, cfg.n_apps, sched, tout,
+                                     dout, t)
+        with span("sim.step.epoch"):
+            tokens, data_st = epoch_maintenance(cfg, dp, state.trans, tokens,
+                                                data_st, t)
+            return SimState(t=state.t + 1, stall_until=stall_until,
+                            instr=instr, pos=pos, trans=trans_st,
+                            data=data_st, tokens=tokens, stats=stats,
+                            asid_of_app=state.asid_of_app)
 
 
 # ---------------------------------------------------------------------------

@@ -20,12 +20,15 @@ A pass is `simulate` over a state with a leading row axis: one row per
 cycles, so a cycle issues the same launches whatever the row count (the
 reference's `lax.scan` over a vmapped step). The cycle counter is kept on
 the host, so a pass issues no host sync until its final state is
-fetched, in one transfer. A one-design pass carries that design's knobs
-as host scalars; `run_grid` runs the designs of one static-signature
-group as the rows of one pass, as the reference does, with a knob the
-rows differ on as an (R,) tensor (`core/design.py` `stack_params`): the
-step branches on a knob where every row agrees and masks per row where
-they differ.
+fetched: one synchronous copy per state leaf, 51 a pass. A one-design
+pass carries that design's knobs as host scalars; `run_grid` runs the
+designs of one static-signature group as the rows of one pass, as the
+reference does, with a knob the rows differ on as an (R,) tensor
+(`core/design.py` `stack_params`): the step branches on a knob where
+every row agrees and masks per row where they differ. Under the torch
+profiler a pass, its cold start, the transfer and each row's stats are
+spans of `repro_torch.spans` (`sim.pass`, `sim.init_state`,
+`sim.to_host`, `sim.stats`).
 
 `TRACE_COUNT` counts PLANS, not traces: the port compiles nothing, and
 a plan is one (canonical `SimConfig`, row count) that the runner has set
@@ -61,6 +64,7 @@ from repro_torch.sim.convert import row_of, state_to_numpy
 from repro_torch.sim.memsys import (SimState, apply_membership_change,
                                    init_state, step)
 from repro_torch.sim.workloads import app_matrix
+from repro_torch.spans import span
 
 DesignLike = Union[str, Design]  # legacy DesignPoint also accepted
 
@@ -145,10 +149,12 @@ def _run_rows(cfg: SimConfig, dp: DesignParams,
               mixes: Sequence[Tuple[Optional[str], ...]]) -> SimState:
     """One pass of `mixes` (one row each) under the knobs `dp` (one
     design's, or each row's from `stack_params`); returns the final
-    state on the host (numpy leaves), in one transfer."""
-    pm = torch.tensor(np.stack([_mix_matrix(m) for m in mixes]),
-                      device=cfg.device)
-    return state_to_numpy(_plan(_canonical(cfg), len(mixes))(dp, pm))
+    state on the host (numpy leaves), one synchronous copy per state
+    leaf (51)."""
+    with span("sim.pass", rows=len(mixes), cycles=cfg.sim_cycles):
+        pm = torch.tensor(np.stack([_mix_matrix(m) for m in mixes]),
+                          device=cfg.device)
+        return state_to_numpy(_plan(_canonical(cfg), len(mixes))(dp, pm))
 
 
 def _audit_enabled(audit: Optional[bool]) -> bool:
@@ -164,49 +170,52 @@ def _stats(cfg: SimConfig, st: SimState,
     (`state_to_numpy(st, row=r)` or `row_of`); with the audit on
     (`audit=True`, or None and env REPRO_AUDIT set) the state is first
     held to `sim.audit.check_state`."""
-    if _audit_enabled(audit):
-        from repro_torch.sim.audit import check_state
-        check_state(cfg, st)
-    na = cfg.n_apps
-    warp_app = np.repeat(np.asarray(cfg.app_of_core), cfg.warps_per_core)
-    t = float(st.t)
-    if not t > 0:
-        raise ZeroCycleError(
-            f"cannot derive per-app IPC from a {t:.0f}-cycle run "
-            f"(design={cfg.design.name!r}): IPC = instructions / cycles "
-            "would be NaN/inf — run with cycles >= 1")
-    ipc = np.bincount(warp_app, weights=st.instr, minlength=na) / t
-    if not np.all(np.isfinite(ipc)):
-        raise NonFiniteStatsError(
-            f"non-finite per-app IPC {ipc} after {t:.0f} cycles "
-            f"(design={cfg.design.name!r}): the retired-instruction "
-            "counters are corrupt")
-    s = st.stats
-    g = lambda x: np.asarray(x, np.float64)  # noqa: E731
-    l1p = g(s.s_l1_hit) + g(s.s_l1_miss)
-    l2p = g(s.s_l2_hit) + g(s.s_l2_miss)
-    return {
-        "ipc": ipc,
-        "l1_hit_rate": g(s.s_l1_hit) / np.maximum(l1p, 1),
-        "l1_miss_rate": g(s.s_l1_miss) / np.maximum(l1p, 1),
-        "l2_hit_rate": g(s.s_l2_hit) / np.maximum(l2p, 1),
-        "l2_miss_rate": g(s.s_l2_miss) / np.maximum(l2p, 1),
-        "byp_hit_rate": g(s.s_byp_hit) / np.maximum(g(s.s_byp_probe), 1),
-        "walk_lat": g(s.s_walk_lat) / np.maximum(g(s.s_walks), 1),
-        "walks": g(s.s_walks),
-        "stalls_per_miss": g(s.s_stall_per_miss) / np.maximum(g(s.s_walks), 1),
-        "dram_tlb_lat": g(s.s_dram_tlb_lat) / np.maximum(g(s.s_dram_tlb_n), 1),
-        "dram_data_lat": g(s.s_dram_data_lat)
-        / np.maximum(g(s.s_dram_data_n), 1),
-        "dram_tlb_n": g(s.s_dram_tlb_n),
-        "dram_data_n": g(s.s_dram_data_n),
-        "l2c_tlb_hit_rate": (g(s.s_l2c_tlb_hit)
-                             / np.maximum(g(s.s_l2c_tlb_probe), 1)),
-        "l2c_data_hit_rate": (g(s.s_l2c_data_hit)
-                              / np.maximum(g(s.s_l2c_data_probe), 1)),
-        "tokens": np.asarray(st.tokens.tokens),
-        "cycles": float(st.t),
-    }
+    with span("sim.stats"):
+        if _audit_enabled(audit):
+            from repro_torch.sim.audit import check_state
+            check_state(cfg, st)
+        na = cfg.n_apps
+        warp_app = np.repeat(np.asarray(cfg.app_of_core), cfg.warps_per_core)
+        t = float(st.t)
+        if not t > 0:
+            raise ZeroCycleError(
+                f"cannot derive per-app IPC from a {t:.0f}-cycle run "
+                f"(design={cfg.design.name!r}): IPC = instructions / cycles "
+                "would be NaN/inf — run with cycles >= 1")
+        ipc = np.bincount(warp_app, weights=st.instr, minlength=na) / t
+        if not np.all(np.isfinite(ipc)):
+            raise NonFiniteStatsError(
+                f"non-finite per-app IPC {ipc} after {t:.0f} cycles "
+                f"(design={cfg.design.name!r}): the retired-instruction "
+                "counters are corrupt")
+        s = st.stats
+        g = lambda x: np.asarray(x, np.float64)  # noqa: E731
+        l1p = g(s.s_l1_hit) + g(s.s_l1_miss)
+        l2p = g(s.s_l2_hit) + g(s.s_l2_miss)
+        return {
+            "ipc": ipc,
+            "l1_hit_rate": g(s.s_l1_hit) / np.maximum(l1p, 1),
+            "l1_miss_rate": g(s.s_l1_miss) / np.maximum(l1p, 1),
+            "l2_hit_rate": g(s.s_l2_hit) / np.maximum(l2p, 1),
+            "l2_miss_rate": g(s.s_l2_miss) / np.maximum(l2p, 1),
+            "byp_hit_rate": g(s.s_byp_hit) / np.maximum(g(s.s_byp_probe), 1),
+            "walk_lat": g(s.s_walk_lat) / np.maximum(g(s.s_walks), 1),
+            "walks": g(s.s_walks),
+            "stalls_per_miss": g(s.s_stall_per_miss)
+            / np.maximum(g(s.s_walks), 1),
+            "dram_tlb_lat": g(s.s_dram_tlb_lat)
+            / np.maximum(g(s.s_dram_tlb_n), 1),
+            "dram_data_lat": g(s.s_dram_data_lat)
+            / np.maximum(g(s.s_dram_data_n), 1),
+            "dram_tlb_n": g(s.s_dram_tlb_n),
+            "dram_data_n": g(s.s_dram_data_n),
+            "l2c_tlb_hit_rate": (g(s.s_l2c_tlb_hit)
+                                 / np.maximum(g(s.s_l2c_tlb_probe), 1)),
+            "l2c_data_hit_rate": (g(s.s_l2c_data_hit)
+                                  / np.maximum(g(s.s_l2c_data_probe), 1)),
+            "tokens": np.asarray(st.tokens.tokens),
+            "cycles": float(st.t),
+        }
 
 
 def _mix_matrix(benches: Sequence[Optional[str]]) -> np.ndarray:
@@ -467,7 +476,8 @@ def run_grid(designs: Sequence[DesignLike],
     `max(max_rows // M, 1)` designs, so every chunk reuses the group's one
     plan (rows are independent, so chunking changes no result); a
     design's mixes are never split, whatever M is. Each chunk's final
-    state comes to the host in one transfer.
+    state comes to the host as one synchronous copy per state leaf (51
+    a pass).
 
     `devices=N` (> 1) shards each chunk's rows over N devices
     (`_sharded_pass`: cuda:0 .. cuda:N-1, or N shards on the CPU one after
