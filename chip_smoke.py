@@ -320,11 +320,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                `scaled_dot_product_attention`; paged at G 32 and 71; ssd
                at hd 128, ds 256; `fused_tlb` at 1056 lanes. Phases 2-19
                must count 0 staged calls.
+ 21. replay -- the cycle step replayed as CUDA graphs (`sim/replay.py`,
+               every `runner.simulate` on the card) against a plain eager
+               loop of `memsys.eager_step`, bit for bit in every state
+               leaf: (a) grid2's stacked pass (7 designs x 325 rows,
+               every knob per row, 200 cycles); (b) `mask` over every
+               3-app bundle and solo row (2,325 rows); (c) `mask` and
+               `gpu-mmu` stacked with the epoch cut to 40 over 130 cycles
+               (three eager epoch cycles); (d) `run_trace` with a churn
+               schedule, a random fault plan and the audit, every
+               snapshot float-hex, one `fused_tlb` launch a cycle; (e)
+               one 60-row pass, the shape of `sweep2-paper35`. Each logs
+               the host ms a pass-cycle, the Python launches (runtime
+               launch calls) and device ms a cycle, graphed and eager, and
+               the key's memory pool and buffer bytes.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
 non-zero without one, and outside a checkout of the repository.
 """
+import collections
 import json
 import subprocess
 import sys
@@ -1493,12 +1508,13 @@ GRID_RATE_ROWS, GRID_RATE_CYCLES = (1, 8, 40), 300
 GRID_PROFILE_STEPS = 50
 # the 8 designs x 5 pairs, as 2 grouped passes and as 8 one-design passes
 GRID_DESIGN_MIXES, GRID_DESIGN_CYCLES = 5, 300
-# dispatcher operations of one step of phase 4's one-design `mask` pass as
-# the step issued them before per-row design knobs came in (the fused round
-# counted as one call): (an epoch step, a step between epochs); the CPU
-# test pins the same counts for every built-in design
+# dispatcher operations of one eager step of phase 4's one-design `mask`
+# pass as the step issued them before per-row design knobs came in, plus
+# the 9 that reading the cycle from the device scalar `state.t` adds (the
+# fused round counted as one call): (an epoch step, a step between
+# epochs); the CPU test pins the same counts for every built-in design
 # (tests/test_torch_grid_designs.py PARENT_STEP_OPS)
-PARENT_MASK_STEP_OPS = (897, 845)
+PARENT_MASK_STEP_OPS = (906, 854)
 
 
 def grid_rows():
@@ -1535,8 +1551,9 @@ def profile_steps(torch, cfg, dp, pm, st, cycle, steps):
 
 
 def step_ops(torch, cfg, dp, pm, st, cycle):
-    """Dispatcher operations of one `memsys.step` (the fused round counted
-    as one call, whatever it runs inside) and the state after it."""
+    """Dispatcher operations of one `memsys.eager_step` (the fused round
+    counted as one call, whatever it runs inside) and the state after
+    it: the operations a captured step records."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.kernels.fused_tlb import ops
@@ -1562,7 +1579,7 @@ def step_ops(torch, cfg, dp, pm, st, cycle):
     ops.fused_tlb_round = round_as_one
     try:
         with torch.inference_mode(), mode:
-            st = memsys.step(cfg, dp, pm, st, cycle)
+            st = memsys.eager_step(cfg, dp, pm, st, cycle)
     finally:
         ops.fused_tlb_round = kernel
     return mode.n, st
@@ -3948,6 +3965,234 @@ def contracts_phase(torch, np, card, fused_tlb_round, fused_tlb_access_ref,
     return entries
 
 
+# ---- phase 21: the step's CUDA graphs ---------------------------------------
+REPLAY_CYCLES = 200                   # the benchmark cells' calls
+REPLAY_EPOCH, REPLAY_EPOCH_CYCLES = 40, 130
+REPLAY_PROFILED = 5                   # cycles a launch count profiles
+REPLAY_TRACE_SEED = 21
+# runtime calls that put work on the card: a Python launch each
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync"}
+
+
+def replay_rows(n_apps):
+    """Every bundle of `n_apps` distinct benchmarks outside the (low, low)
+    class, then a solo row per benchmark: 325 rows of 2, 2,325 of 3."""
+    import itertools
+
+    from repro_torch.sim.workloads import BENCHES, CATEGORY
+    elig = sorted(b for b in BENCHES if CATEGORY[b] != ("low", "low"))
+    return list(itertools.combinations(elig, n_apps)) + [
+        (b,) + (None,) * (n_apps - 1) for b in elig]
+
+
+def bitwise(torch, got, want, what):
+    """Every leaf of two states equal bit for bit (floats by their bits)."""
+    from repro_torch.sim.replay import _leaves
+    a, b = _leaves(got), _leaves(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} leaves against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{what}: state leaf {i} differs")
+
+
+def launches_a_cycle(torch, step, st, cycle, n=REPLAY_PROFILED):
+    """(Python launches, device ms) a cycle over `n` cycles of `step`
+    after one more from `st` at `cycle` (which copies a graphed key's
+    state in), in a `torch.profiler` window, and the launches by runtime
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        st = step(st, cycle)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            for c in range(cycle + 1, cycle + 1 + n):
+                st = step(st, c)
+        torch.cuda.synchronize()
+    ev = prof.events()
+    calls = collections.Counter(e.name for e in ev if e.name in LAUNCH_CALLS)
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == DeviceType.CUDA)
+    return sum(calls.values()) / n, dev_us / 1e3 / n, dict(calls)
+
+
+def replay_entry_bytes(torch):
+    """(the memory pool's bytes, the static buffers' bytes) of the cache's
+    most recently used key."""
+    from repro_torch.sim import replay
+    e = next(reversed(replay.GRAPHS.entries.values()))
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(e.pool))
+    bufs = replay._leaves(e.state) + [e.params] + list(e.knobs.values())
+    return pool, sum(x.numel() * x.element_size() for x in bufs)
+
+
+def replay_case(torch, card, tag, cfg, dp, pm):
+    """One pass graphed (`runner.simulate`) against a plain eager loop of
+    `memsys.eager_step`, bit for bit; the host ms a pass-cycle, the
+    Python launches a cycle and the device ms a cycle of each; the key's
+    pool and buffer bytes."""
+    from repro_torch.sim import memsys, replay, runner
+    R, cycles = pm.shape[0], cfg.sim_cycles
+    out = {"rows": R, "cycles": cycles}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        st = memsys.init_state(cfg, dp, rows=R)
+        for cycle in range(cycles):
+            st = memsys.eager_step(cfg, dp, pm, st, cycle)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    eager = st
+    out["eager_host_ms"] = (t1 - t0) * 1e3 / cycles
+    out["eager_wall_ms"] = (time.perf_counter() - t0) * 1e3 / cycles
+    captures = replay.GRAPHS.captures
+    first = runner.simulate(cfg, dp, pm)   # warm: eager, capture, replays
+    bitwise(torch, first, eager, f"{tag} (the capturing pass)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed = runner.simulate(cfg, dp, pm)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    out["graphed_host_ms"] = (t1 - t0) * 1e3 / cycles
+    out["graphed_wall_ms"] = (time.perf_counter() - t0) * 1e3 / cycles
+    bitwise(torch, graphed, eager, tag)
+    out["captures"] = replay.GRAPHS.captures - captures
+    out["pool_bytes"], out["buffer_bytes"] = replay_entry_bytes(torch)
+    out["graphed_launches"], out["graphed_device_ms"], calls = \
+        launches_a_cycle(torch, lambda s, c: memsys.step(cfg, dp, pm, s, c),
+                         graphed, cycles)
+    out["eager_launches"], out["eager_device_ms"], _ = launches_a_cycle(
+        torch, lambda s, c: memsys.eager_step(cfg, dp, pm, s, c), eager,
+        cycles)
+    log(f"[replay] {tag}: {R} rows x {cycles} cycles graphed == eager bit "
+        f"for bit; host ms a pass-cycle {out['graphed_host_ms']:.3f} "
+        f"graphed ({out['graphed_wall_ms']:.3f} with the device) against "
+        f"{out['eager_host_ms']:.3f} eager ({out['eager_wall_ms']:.3f}); "
+        f"Python launches a cycle {out['graphed_launches']:.1f} against "
+        f"{out['eager_launches']:.1f} (graphed, by call over "
+        f"{REPLAY_PROFILED} cycles: {calls}); device ms a cycle "
+        f"{out['graphed_device_ms']:.3f} against "
+        f"{out['eager_device_ms']:.3f}; pool {out['pool_bytes']} B, "
+        f"buffers {out['buffer_bytes']} B; {out['captures']} capture(s) "
+        f"[{card}]")
+    return out
+
+
+def replay_phase(torch, np, card, fused_tlb_round):
+    """Phase 21: the graphed step against the eager one on the card.
+    Returns what each case logged."""
+    from repro_torch.core.design import (design_params, get_design,
+                                         stack_params)
+    from repro_torch.sim import faults, memsys, replay, runner
+    from repro_torch.sim.config import SimConfig
+    from repro_torch.sim.workloads import (app_matrix, churn_schedule,
+                                           pair_workloads)
+
+    def pm_of(rows):
+        return torch.tensor(np.stack([app_matrix(m) for m in rows]),
+                            device="cuda")
+
+    out = {}
+    # (a) grid2's stacked pass: 7 designs x 325 rows, every knob per row
+    rows2 = replay_rows(2)
+    group = ["pwc", "gpu-mmu", "static", "mask", "mask-tlb", "mask-cache",
+             "mask-dram"]
+    cfg = runner._canonical(SimConfig(n_apps=2, design=get_design("mask"),
+                                      sim_cycles=REPLAY_CYCLES,
+                                      device="cuda"))
+    dp = stack_params([design_params(n) for n in group], len(rows2), "cuda")
+    out["a"] = replay_case(torch, card, "(a) grid2's stacked pass", cfg, dp,
+                           pm_of(rows2 * len(group)))
+    # (b) mask over every 3-app bundle
+    rows3 = replay_rows(3)
+    cfg = SimConfig(n_apps=3, design="mask", sim_cycles=REPLAY_CYCLES,
+                    device="cuda")
+    out["b"] = replay_case(torch, card, "(b) mask, 3-app", cfg,
+                           design_params(cfg.design), pm_of(rows3))
+    # (c) mask and gpu-mmu stacked, the epoch cut to 40: three epochs
+    ds = [get_design(n).with_(epoch_cycles=REPLAY_EPOCH)
+          for n in ("mask", "gpu-mmu")]
+    sub = rows3[:200]
+    cfg = SimConfig(n_apps=3, design=ds[0], sim_cycles=REPLAY_EPOCH_CYCLES,
+                    device="cuda")
+    dp = stack_params([design_params(d) for d in ds], len(sub), "cuda")
+    out["c"] = replay_case(torch, card, "(c) mask + gpu-mmu, epoch 40", cfg,
+                           dp, pm_of(sub * 2))
+    # (d) run_trace with churn, a random fault plan and the audit
+    sched = churn_schedule(REPLAY_TRACE_SEED, CHURN_SEGMENTS, CHURN_SLOTS)
+    plan = faults.random_plan(REPLAY_TRACE_SEED, CHURN_SEGMENTS, CHURN_SLOTS)
+    kw = dict(seg_cycles=CHURN_SEG, fault_plan=plan, audit=True,
+              device="cuda", return_state=True)
+    n = CHURN_SEGMENTS * CHURN_SEG
+    launches = fused_tlb_round.launches
+    t0 = time.perf_counter()
+    graphed = runner.run_trace("mask", sched, **kw)
+    t_graphed = time.perf_counter() - t0
+    if fused_tlb_round.launches - launches != n:
+        raise AssertionError(f"(d): {fused_tlb_round.launches - launches} "
+                             f"fused_tlb launches for {n} cycles")
+    step = runner.step
+    runner.step = memsys.eager_step
+    try:
+        t0 = time.perf_counter()
+        eager = runner.run_trace("mask", sched, **kw)
+        t_eager = time.perf_counter() - t0
+    finally:
+        runner.step = step
+    for k, (a, b) in enumerate(zip(graphed.segments, eager.segments)):
+        for key in a:
+            if np.asarray(a[key], np.float64).tobytes() != \
+                    np.asarray(b[key], np.float64).tobytes():
+                raise AssertionError(f"(d): segment {k} {key} differs")
+    bitwise(torch, graphed.final_state, eager.final_state, "(d) trace")
+    out["d"] = {"segments": CHURN_SEGMENTS, "seg_cycles": CHURN_SEG,
+                "faults": len(plan.faults), "graphed_ms": t_graphed * 1e3 / n,
+                "eager_ms": t_eager * 1e3 / n}
+    # the trace's step past its end, from its final state: a segment's key
+    # (its canonical config, `mask`'s own knobs)
+    cfg = runner._canonical(SimConfig(n_apps=CHURN_SLOTS, design="mask",
+                                      sim_cycles=CHURN_SEG, device="cuda"))
+    dp = design_params(get_design("mask"))
+    captures = replay.GRAPHS.captures
+    pm = pm_of(sched[-1:])
+    st = memsys.map_state(lambda x: x[None], graphed.final_state)
+    out["d"]["graphed_launches"], _, calls = launches_a_cycle(
+        torch, lambda s, c: memsys.step(cfg, dp, pm, s, c), st, n)
+    out["d"]["eager_launches"], _, _ = launches_a_cycle(
+        torch, lambda s, c: memsys.eager_step(cfg, dp, pm, s, c),
+        memsys.map_state(lambda x: x[None], eager.final_state), n)
+    out["d"]["pool_bytes"], out["d"]["buffer_bytes"] = \
+        replay_entry_bytes(torch)
+    if replay.GRAPHS.captures != captures:
+        raise AssertionError("(d): the step past the trace captured anew")
+    log(f"[replay] (d) run_trace mask, {CHURN_SEGMENTS} x {CHURN_SEG} "
+        f"cycles, {CHURN_SLOTS} slots, {len(plan.faults)} faults, audit on: "
+        f"graphed == eager float-hex (every snapshot, the final state); "
+        f"{out['d']['graphed_ms']:.3f} against {out['d']['eager_ms']:.3f} "
+        f"ms a cycle with the boundaries and snapshots; Python launches a "
+        f"cycle {out['d']['graphed_launches']:.1f} against "
+        f"{out['d']['eager_launches']:.1f} ({calls}); pool "
+        f"{out['d']['pool_bytes']} B, buffers {out['d']['buffer_bytes']} B "
+        f"[{card}]")
+    # (e) sweep2-paper35's pass: 35 pairs and 25 solo rows, one design
+    pairs = pair_workloads(7, 35)
+    used = {b for m in pairs for b in m}
+    rows = pairs + [(b, None) for b in sorted(used)]
+    cfg = SimConfig(n_apps=2, design="mask", sim_cycles=REPLAY_CYCLES,
+                    device="cuda")
+    out["e"] = replay_case(torch, card, "(e) sweep2-paper35's 60-row pass",
+                           cfg, design_params(cfg.design), pm_of(rows))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4177,6 +4422,11 @@ def main():
     contracts = contracts_phase(torch, np, card, fused_tlb_round,
                                 fused_tlb_access_ref, flash_attention_bhsd)
 
+    # ---- 21. the step's CUDA graphs -------------------------------------
+    t0 = time.perf_counter()
+    graphs = replay_phase(torch, np, card, fused_tlb_round)
+    log(f"[replay] phase 21 took {time.perf_counter() - t0:.1f} s [{card}]")
+
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")
     l2 = timings[0]
@@ -4190,7 +4440,7 @@ def main():
         "plain_ms": l2["plain_ms"],
         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
         "library_ms": None, "shapes": timings, **grid, "churn": churn,
-        "distributed": dist_grid,
+        "distributed": dist_grid, "step_graphs": graphs,
         "serving": dict(overload, engine_launches=engine[
             "engine_fused_tlb_launches"], engine_grid_calls=engine[
             "engine_grid_calls"])},

@@ -19,11 +19,30 @@ slices it off.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.fused_tlb.ops import fused_tlb_access
+from repro_torch.kernels.fused_tlb import ops as fused_ops
+
+# while a cycle step is captured as CUDA graphs (`sim/replay.py`), the
+# capture's splitter, called in each fused round's place as
+# `_split(round, args, kwargs)`: it ends the captured stretch before the
+# round, runs the round and starts the next stretch after it
+_split = None
+
+
+@contextlib.contextmanager
+def split_rounds(splitter):
+    """Route every fused round of `access_fused` through `splitter`
+    inside the block."""
+    global _split
+    prev, _split = _split, splitter
+    try:
+        yield
+    finally:
+        _split = prev
 
 
 class TLBState(NamedTuple):
@@ -38,11 +57,14 @@ def _scatter_drop(plane: torch.Tensor, flat: torch.Tensor, values
                   ) -> torch.Tensor:
     """`plane.at[flat].set(values, mode="drop")` over each structure's
     flattened (sets, ways) plane: plane (..., sets, ways), flat (..., N)
-    indices into sets * ways, where sets * ways is dropped. Kept indices
+    indices into sets * ways, where sets * ways is dropped. `values` is a
+    tensor of flat's shape, a 0-dim tensor or a host scalar. Kept indices
     must be distinct, or carry equal values (scatter_ gives duplicates no
     defined order)."""
     lead = plane.shape[:-2]
     ext = torch.cat([plane.flatten(-2), plane.new_empty(lead + (1,))], -1)
+    if isinstance(values, torch.Tensor) and values.dim() == 0:
+        values = values.expand(flat.shape)
     ext.scatter_(-1, flat, values)
     return ext[..., :-1].reshape(plane.shape)
 
@@ -73,10 +95,11 @@ def init(n_entries: int, n_ways: int, device) -> TLBState:
     )
 
 
-def probe(state: TLBState, vpn, asid, active, time: int
+def probe(state: TLBState, vpn, asid, active, time
           ) -> Tuple[TLBState, torch.Tensor]:
     """Batched probe. vpn/asid/active: (..., N) for planes (..., sets,
-    ways). Returns (state', hit (..., N) bool).
+    ways); `time` the LRU stamp, a host int or a 0-dim int32 tensor.
+    Returns (state', hit (..., N) bool).
 
     LRU is updated for hits; hit/miss counters accumulate only active lanes.
     """
@@ -94,8 +117,9 @@ def probe(state: TLBState, vpn, asid, active, time: int
     return state._replace(lru=lru, hits=hits, misses=misses), hit
 
 
-def fill(state: TLBState, vpn, asid, do_fill, time: int) -> TLBState:
-    """Batched fill with LRU victim selection. do_fill: (..., N) bool.
+def fill(state: TLBState, vpn, asid, do_fill, time) -> TLBState:
+    """Batched fill with LRU victim selection. do_fill: (..., N) bool;
+    `time` as `probe` takes it.
 
     One fill per set per call (first lane wins): fill-port limits."""
     n_sets, n_ways = state.tags.shape[-2:]
@@ -123,7 +147,7 @@ def init_bank(n_banks: int, n_entries: int, n_ways: int, device) -> TLBState:
                       for x in single))
 
 
-def probe_bank(state: TLBState, vpn, asid, active, time: int
+def probe_bank(state: TLBState, vpn, asid, active, time
                ) -> Tuple[TLBState, torch.Tensor]:
     """Probe a bank of TLBs, one request per bank. vpn/asid/active:
     (..., B) for a bank of (..., B, sets, ways): `probe` with one lane
@@ -133,7 +157,7 @@ def probe_bank(state: TLBState, vpn, asid, active, time: int
     return state, hit[..., 0]
 
 
-def fill_bank(state: TLBState, vpn, asid, do_fill, time: int) -> TLBState:
+def fill_bank(state: TLBState, vpn, asid, do_fill, time) -> TLBState:
     """Fill a bank of TLBs, one request per bank. vpn/asid/do_fill:
     (..., B): `fill` with one lane per TLB."""
     return fill(state, vpn[..., None], asid[..., None], do_fill[..., None],
@@ -156,7 +180,9 @@ def access_fused(state: TLBState, vpn, asid, active, may_fill, time: int,
 
     The round runs in `kernels/fused_tlb`: the CUDA kernel on a CUDA
     tensor (one thread block per row, all rows in one launch), the plain
-    PyTorch round on a CPU tensor. `backend` ("cuda" or "torch"), where
+    PyTorch round on a CPU tensor, called as `ops.fused_tlb_access` with
+    the host int `time` (or through `split_rounds`' splitter while a step
+    is captured). `backend` ("cuda" or "torch"), where
     given, states which one the caller expects, as the reference's
     `backend=` names its implementation; a mismatch raises. The
     tags/asids/lru planes are updated in place and returned, as the
@@ -169,9 +195,14 @@ def access_fused(state: TLBState, vpn, asid, active, may_fill, time: int,
                                            else "torch"):
         raise ValueError(f"tlb backend {backend!r} does not run on device "
                          f"{vpn.device}")
-    tags, asids, lru, hit_i, filled_i = fused_tlb_access(
-        state.tags, state.asids, state.lru, vpn, asid, active, may_fill,
-        time, n_waves=n_waves, track_asids=track_asids)
+    args = (state.tags, state.asids, state.lru, vpn, asid, active, may_fill,
+            time)
+    kwargs = dict(n_waves=n_waves, track_asids=track_asids)
+    if _split is None:
+        out = fused_ops.fused_tlb_access(*args, **kwargs)
+    else:
+        out = _split(fused_ops.fused_tlb_access, args, kwargs)
+    tags, asids, lru, hit_i, filled_i = out
     hit = hit_i != 0
     filled = filled_i != 0
     hits = state.hits + hit.sum(-1, dtype=torch.int32)

@@ -13,14 +13,21 @@ reference:
                           a cycle's walk and data lanes;
   translation_commit   -- walk latencies, walk-table install;
   accumulate_stats     -- the packed per-app counter planes;
-plus warp retire and epoch maintenance. Under the torch profiler `step`
-and each of its stages is a span of `repro_torch.spans` (`sim.step`,
-`sim.step.sched` ... `sim.step.epoch`); with no profiler they cost a
-flag read.
+plus warp retire and epoch maintenance. `eager_step` issues them op by
+op. On a CUDA device `step` replays the CUDA graphs of the stretches
+between the fused rounds instead (`sim/replay.py`), launching each round
+from Python with the cycle's host time; a cycle where the epoch runs,
+and every cycle on the CPU, runs `eager_step`. Under the torch profiler
+`step` is a span of `repro_torch.spans` (`sim.step`, attr `replay`: 1
+where the cycle replayed its graphs), and so is each stage of an eager
+or captured cycle (`sim.step.sched` ... `sim.step.epoch`); with no
+profiler they cost a flag read.
 
 State is NamedTuples of tensors with the reference's fields, in the
-reference's order (`sim/convert.py` carries states across). The cycle
-counter is a host value. The design's policy knobs (`DesignParams`) come
+reference's order (`sim/convert.py` carries states across). The stages
+read the cycle from the state's device scalar `t` (a host int is taken
+too); the caller keeps a host copy for the epoch branch and the fused
+rounds' `time`. The design's policy knobs (`DesignParams`) come
 as host values where every row agrees: each branch of the reference's
 `lax.cond`/`jnp.where` on such a knob is a Python branch here. A knob
 whose rows differ (`core/design.py` `stack_params`) comes as an (R,)
@@ -62,6 +69,7 @@ from repro_torch.core import tokens as tok_mod
 from repro_torch.core.design import DesignParams
 from repro_torch.core.mask import static_partition_index
 from repro_torch.core.page_table import _mix, u32, wrap_i32
+from repro_torch.sim import replay
 from repro_torch.sim.config import SimConfig
 from repro_torch.sim.workloads import FIELD, gen_vpn
 from repro_torch.spans import span
@@ -163,8 +171,12 @@ class _Consts(NamedTuple):
     warp_app: torch.Tensor       # (W,) int64 app slot of each warp
 
 
-@functools.lru_cache(maxsize=32)
 def _consts(cfg: SimConfig) -> _Consts:
+    return replay.held(_make_consts(cfg))
+
+
+@functools.lru_cache(maxsize=32)
+def _make_consts(cfg: SimConfig) -> _Consts:
     dev, C = cfg.device, cfg.n_cores
     tr = cfg.design.translation
     L = 0 if tr.kind == "ideal" else tr.walk_levels
@@ -190,10 +202,14 @@ def _consts(cfg: SimConfig) -> _Consts:
     )
 
 
-@functools.lru_cache(maxsize=64)
 def _lanes(n: int, nw: int, device: str, rows: int):
     """(is_tlb (n,), zeros (rows, n) int32, ones (rows, n) bool) for a
     round of n lanes whose first nw are walk lanes."""
+    return replay.held(_make_lanes(n, nw, device, rows))
+
+
+@functools.lru_cache(maxsize=64)
+def _make_lanes(n: int, nw: int, device: str, rows: int):
     return (torch.arange(n, device=device) < nw,
             torch.zeros((rows, n), dtype=I32, device=device),
             torch.ones((rows, n), dtype=torch.bool, device=device))
@@ -304,6 +320,12 @@ def _pick(on: torch.Tensor, a, b):
     return torch.where(on.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
+def _round_time(t, t_host):
+    """A fused round's `time`, a host int: `t_host`, else the stage's
+    cycle `t` (read back where it is a tensor)."""
+    return int(t) if t_host is None else t_host
+
+
 def _last_writer(idx: torch.Tensor, n: int) -> torch.Tensor:
     """(R, N) bool: lane i is the highest lane of its row writing idx[r, i]
     (idx in 0..n).
@@ -334,10 +356,11 @@ class SchedOut(NamedTuple):
     pos: torch.Tensor            # stream position of the picked warp
 
 
-def warp_sched(cfg: SimConfig, params_mat, stall_until, pos, t: int,
+def warp_sched(cfg: SimConfig, params_mat, stall_until, pos, t,
                asid_of_app=None) -> SchedOut:
     """GTO-like pick: per core, the ready warp that has waited longest.
-    params_mat: (R, n_apps, N_FIELDS); stall_until/pos: (R, W)."""
+    params_mat: (R, n_apps, N_FIELDS); stall_until/pos: (R, W); t: the
+    cycle, a host int or a 0-dim int32 tensor (as every stage takes it)."""
     C, wpc = cfg.n_cores, cfg.warps_per_core
     R = stall_until.shape[0]
     k = _consts(cfg)
@@ -381,9 +404,11 @@ class TransProbe(NamedTuple):
 
 
 def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
-                      tokens: tok_mod.TokenState, sched: SchedOut, t: int
+                      tokens: tok_mod.TokenState, sched: SchedOut, t,
+                      t_host: Optional[int] = None
                       ) -> Tuple[TransState, TransProbe]:
-    """TLB hierarchy probes/fills + page-walk lane generation.
+    """TLB hierarchy probes/fills + page-walk lane generation. The PWC
+    round takes the host cycle `t_host` (default: `t`).
 
     A cache no row uses is skipped: the reference probes and fills it
     with an all-False mask, which leaves its state unchanged. Where only
@@ -476,7 +501,7 @@ def translation_probe(cfg: SimConfig, dp: DesignParams, trans: TransState,
         _, zeros, ones = _lanes(L * C, L * C, cfg.device, R)
         pwc, pwc_hit, _ = tlb_mod.access_fused(
             trans.pwc, walk_lines, zeros, _masked(walk_active, dp.use_pwc),
-            ones, t, n_waves=L, track_asids=False)
+            ones, _round_time(t, t_host), n_waves=L, track_asids=False)
         walk_go = walk_active & ~pwc_hit
         pwc_lat = 5 * (walk_active & pwc_hit).reshape(R, L, C) \
             .sum(1, dtype=I32)
@@ -505,7 +530,7 @@ class DataFront(NamedTuple):
     lines: torch.Tensor          # (R, DATA_WIDTH*C) line ids, wave-major
 
 
-def datapath_front(cfg: SimConfig, params_mat, sched: SchedOut, t: int
+def datapath_front(cfg: SimConfig, params_mat, sched: SchedOut, t
                    ) -> DataFront:
     """Draw the L1D outcome and generate the divergent line addresses."""
     pfn = pt_mod.translate(pt_mod.PageTableConfig(), sched.asid, sched.vpn)
@@ -538,9 +563,11 @@ class MemOut(NamedTuple):
 
 def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
                          app, walk_lines, walk_go, walk_tags,
-                         data_lines, go_l2d, t: int
+                         data_lines, go_l2d, t,
+                         t_host: Optional[int] = None
                          ) -> Tuple[DataState, MemOut]:
-    """Shared L2 data cache + DRAM for ALL of a cycle's sub-accesses.
+    """Shared L2 data cache + DRAM for ALL of a cycle's sub-accesses; the
+    L2$ round takes the host cycle `t_host` (default: `t`).
 
     Lanes are wave-major (walk level 0..L-1, then data line 0..K-1, each
     wave C cores wide), so lane order is the sequential model's program
@@ -582,7 +609,8 @@ def shared_memory_access(cfg: SimConfig, dp: DesignParams, data: DataState,
     # tag = full line id, tag-only cache; `lines * l2_sets` wraps int32
     tag = wrap_i32(lines.to(torch.int64) * cfg.l2_sets + key)
     l2c, hit, _ = tlb_mod.access_fused(
-        l2c, tag, zeros, go, may_fill, t, n_waves=max(L + K, 1),
+        l2c, tag, zeros, go, may_fill, _round_time(t, t_host),
+        n_waves=max(L + K, 1),
         track_asids=False)
     lat = hit.to(I32) * cfg.lat_l2_cache
     miss = go & ~hit
@@ -648,7 +676,7 @@ class TransOut(NamedTuple):
 
 
 def translation_commit(cfg: SimConfig, trans: TransState, probe: TransProbe,
-                       mem: MemOut, sched: SchedOut, t: int
+                       mem: MemOut, sched: SchedOut, t
                        ) -> Tuple[TransState, TransOut]:
     """Resolve walk latencies, install fresh walks, settle trans latency."""
     tr = cfg.design.translation
@@ -735,7 +763,7 @@ def _data_out(cfg: SimConfig, front: DataFront, mem: MemOut) -> DataOut:
 # ---------------------------------------------------------------------------
 
 def accumulate_stats(stats: StatState, n_apps: int, sched: SchedOut,
-                     tout: TransOut, dout: DataOut, t: int) -> StatState:
+                     tout: TransOut, dout: DataOut, t) -> StatState:
     """Fold one cycle's per-core outcomes into the packed stat planes.
 
     The cycle's rows are first summed per app (integer-valued float32, so
@@ -774,7 +802,7 @@ def accumulate_stats(stats: StatState, n_apps: int, sched: SchedOut,
 # retire + epoch maintenance
 # ---------------------------------------------------------------------------
 
-def retire(stall_until, instr, pos, sched: SchedOut, total_lat, gap, t: int):
+def retire(stall_until, instr, pos, sched: SchedOut, total_lat, gap, t):
     """Stall issued warps until their latency resolves; credit instrs.
     Each core picks a distinct warp, so a row's writes never collide."""
     w = sched.picked_warp.long()
@@ -788,6 +816,13 @@ def retire(stall_until, instr, pos, sched: SchedOut, total_lat, gap, t: int):
     return stall_until, instr, pos
 
 
+def epoch_due(cfg: SimConfig, dp: DesignParams, t: int) -> bool:
+    """Whether `epoch_maintenance` runs at the host cycle `t`: an
+    adaptive mechanism on in some row, and t a multiple of the epoch."""
+    return any(_some(k) for k in (dp.tokens_on, dp.dram_on, dp.bypass_on)) \
+        and t % cfg.design.epoch_cycles == 0
+
+
 def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
                       tokens: tok_mod.TokenState, data: DataState, t: int
                       ) -> Tuple[tok_mod.TokenState, DataState]:
@@ -797,10 +832,10 @@ def epoch_maintenance(cfg: SimConfig, dp: DesignParams, trans: TransState,
 
     `trans` must be the PRE-update translation state (the epoch-end
     census of in-flight walks)."""
+    if not epoch_due(cfg, dp, t):
+        return tokens, data
     adaptive = [k for k in (dp.tokens_on, dp.dram_on, dp.bypass_on)
                 if _some(k)]
-    if not (adaptive and t % cfg.design.epoch_cycles == 0):
-        return tokens, data
     na = cfg.n_apps
     walk = trans.walk                                     # (R, WT, 4)
     R, WT = walk.shape[:2]
@@ -834,54 +869,77 @@ def step(cfg: SimConfig, dp: DesignParams, params_mat, state: SimState,
     """One cycle of every row. params_mat: (R, n_apps, N_FIELDS) int32
     workload params, one matrix per row of `state`; dp: one design's
     policy knobs, or each row's (`stack_params`: a knob the rows differ
-    on is an (R,) tensor); cycle:
-    the host copy of `state.t`. A state without the row axis
-    (`init_state(cfg, dp)`) takes an (n_apps, N_FIELDS) matrix and runs
-    as one row.
+    on is an (R,) tensor); cycle: the host copy of `state.t`. A state
+    without the row axis (`init_state(cfg, dp)`) takes an (n_apps,
+    N_FIELDS) matrix and runs as one row.
 
+    On a CUDA device the cycle goes through `replay.GRAPHS`: it replays
+    the captured graphs of its key and returns that key's state buffers,
+    which the key's next cycle overwrites (`runner.simulate` hands back a
+    copy); its key's first cycle and a cycle where the epoch runs run
+    `eager_step`, the second is captured. On the CPU it runs `eager_step`.
     Issues no host sync, and the same launches whatever R is; updates the
     shared caches' planes in place."""
     if params_mat.dim() == 2:               # one run without a row axis
         out = step(cfg, dp, params_mat[None],
                    map_state(lambda x: x[None], state), cycle)
         return map_state(lambda x: x[0], out)
-    with span("sim.step"):
-        with span("sim.step.sched"):
-            t = cycle + 1
-            sched = warp_sched(cfg, params_mat, state.stall_until, state.pos,
-                               t, asid_of_app=state.asid_of_app)
-        with span("sim.step.probe"):
-            trans_st, probe = translation_probe(cfg, dp, state.trans,
-                                                state.tokens, sched, t)
-        with span("sim.step.front"):
-            dfront = datapath_front(cfg, params_mat, sched, t)
-        with span("sim.step.memory"):
-            data_st, mem = shared_memory_access(
-                cfg, dp, state.data, sched.app, probe.walk_lines,
-                probe.walk_go, probe.walk_tags, dfront.lines, dfront.go_l2d,
-                t)
-        with span("sim.step.commit"):
-            trans_st, tout = translation_commit(cfg, trans_st, probe, mem,
-                                                sched, t)
-        with span("sim.step.retire"):
-            dout = _data_out(cfg, dfront, mem)
-            gap = params_mat[:, sched.app, FIELD["gap"]]
-            total_lat = tout.trans_lat + dout.data_lat + gap
-            stall_until, instr, pos = retire(
-                state.stall_until, state.instr, state.pos, sched, total_lat,
-                gap, t)
-            tokens = tok_mod.record(state.tokens, sched.app,
-                                    tout.l2_hit_eff, tout.l1_miss)
-        with span("sim.step.stats"):
-            stats = accumulate_stats(state.stats, cfg.n_apps, sched, tout,
-                                     dout, t)
-        with span("sim.step.epoch"):
-            tokens, data_st = epoch_maintenance(cfg, dp, state.trans, tokens,
-                                                data_st, t)
-            return SimState(t=state.t + 1, stall_until=stall_until,
-                            instr=instr, pos=pos, trans=trans_st,
-                            data=data_st, tokens=tokens, stats=stats,
-                            asid_of_app=state.asid_of_app)
+    with span("sim.step") as attrs:
+        if params_mat.is_cuda:
+            with torch.inference_mode():
+                state, replayed = replay.GRAPHS.step(cfg, dp, params_mat,
+                                                     state, cycle)
+        else:
+            state, replayed = eager_step(cfg, dp, params_mat, state,
+                                         cycle), False
+        if attrs is not None:
+            attrs["replay"] = int(replayed)
+        return state
+
+
+def eager_step(cfg: SimConfig, dp: DesignParams, params_mat,
+               state: SimState, cycle: int) -> SimState:
+    """One cycle of a state with the row axis, issued op by op: the
+    stages read the cycle from `state.t` on the device; the fused rounds
+    and the epoch branch take the host `cycle`."""
+    t_host = cycle + 1
+    with span("sim.step.sched"):
+        t_next = state.t + 1
+        t = t_next[0]                        # () the cycle, on the device
+        sched = warp_sched(cfg, params_mat, state.stall_until, state.pos,
+                           t, asid_of_app=state.asid_of_app)
+    with span("sim.step.probe"):
+        trans_st, probe = translation_probe(cfg, dp, state.trans,
+                                            state.tokens, sched, t, t_host)
+    with span("sim.step.front"):
+        dfront = datapath_front(cfg, params_mat, sched, t)
+    with span("sim.step.memory"):
+        data_st, mem = shared_memory_access(
+            cfg, dp, state.data, sched.app, probe.walk_lines,
+            probe.walk_go, probe.walk_tags, dfront.lines, dfront.go_l2d,
+            t, t_host)
+    with span("sim.step.commit"):
+        trans_st, tout = translation_commit(cfg, trans_st, probe, mem,
+                                            sched, t)
+    with span("sim.step.retire"):
+        dout = _data_out(cfg, dfront, mem)
+        gap = params_mat[:, sched.app, FIELD["gap"]]
+        total_lat = tout.trans_lat + dout.data_lat + gap
+        stall_until, instr, pos = retire(
+            state.stall_until, state.instr, state.pos, sched, total_lat,
+            gap, t)
+        tokens = tok_mod.record(state.tokens, sched.app,
+                                tout.l2_hit_eff, tout.l1_miss)
+    with span("sim.step.stats"):
+        stats = accumulate_stats(state.stats, cfg.n_apps, sched, tout,
+                                 dout, t)
+    with span("sim.step.epoch"):
+        tokens, data_st = epoch_maintenance(cfg, dp, state.trans, tokens,
+                                            data_st, t_host)
+        return SimState(t=t_next, stall_until=stall_until,
+                        instr=instr, pos=pos, trans=trans_st,
+                        data=data_st, tokens=tokens, stats=stats,
+                        asid_of_app=state.asid_of_app)
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,11 @@ Port of `repro.sim.runner`'s main path, grid layer and churn runner:
 A pass is `simulate` over a state with a leading row axis: one row per
 (design, mix), all rows stepped together by one Python loop over the
 cycles, so a cycle issues the same launches whatever the row count (the
-reference's `lax.scan` over a vmapped step). The cycle counter is kept on
-the host, so a pass issues no host sync until its final state is
-fetched: one synchronous copy per state leaf, 51 a pass. A one-design
+reference's `lax.scan` over a vmapped step); on the card each cycle
+replays the step's CUDA graphs (`sim/replay.py`). A host copy of the
+cycle counter rides beside the state's, so a pass issues no host sync
+until its final state is fetched: one synchronous copy per state leaf,
+51 a pass. A one-design
 pass carries that design's knobs as host scalars; `run_grid` runs the
 designs of one static-signature group as the rows of one pass, as the
 reference does, with a knob the rows differ on as an (R,) tensor
@@ -59,6 +61,7 @@ from repro_torch.core.design import (Design, DesignParams, as_design,
                                      stack_params, static_signature)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sim import faults as faults_mod
+from repro_torch.sim import replay
 from repro_torch.sim.config import SimConfig
 from repro_torch.sim.convert import row_of, state_to_numpy
 from repro_torch.sim.memsys import (SimState, apply_membership_change,
@@ -91,14 +94,16 @@ def simulate(cfg: SimConfig, dp: DesignParams, params_mat: torch.Tensor,
     a state of R rows; an (n_apps, N_FIELDS) matrix gives the reference's
     single state, without the row axis. `state` (default: the cold start)
     is the state to run on and `start` the cycle its clock reads: the host
-    copy of `state.t`, which `step` and the epoch logic take, so a later
-    segment of a trace runs cycles start .. start + sim_cycles - 1."""
+    copy of `state.t`, which the epoch branch and the fused rounds take,
+    so a later segment of a trace runs cycles start .. start + sim_cycles
+    - 1. The state returned is the caller's: where the last cycle left it
+    in the step's graph buffers, it is a copy (`Graphs.detach`)."""
     if state is None:
         state = init_state(
             cfg, dp, params_mat.shape[0] if params_mat.dim() == 3 else None)
     for cycle in range(start, start + cfg.sim_cycles):
         state = step(cfg, dp, params_mat, state, cycle)
-    return state
+    return replay.GRAPHS.detach(state)
 
 
 def _canonical(cfg: SimConfig) -> SimConfig:
@@ -116,7 +121,9 @@ def _plan(ccfg: SimConfig, rows: int):
     """The pass of `rows` rows under the canonical config `ccfg`: a
     callable (dp, (rows, n_apps, N_FIELDS) params) -> final state.
     Setting one up bumps `TRACE_COUNT`; a later pass of the same key
-    reuses it (the CUDA graph of a pass will be captured per plan)."""
+    reuses it. On the card its cycles replay the step's CUDA graphs,
+    which `sim/replay.py` captures per key (the config without its cycle
+    count, the rows, the device and the knobs' kinds)."""
     global TRACE_COUNT
     TRACE_COUNT += 1
     return functools.partial(simulate, ccfg)

@@ -489,13 +489,18 @@ def test_chunk_plans_and_failure_records_match_reference(monkeypatch, names,
 
 # ------------------------------------------------------------ launches
 
-# dispatcher operations of one step of a one-design pass at R = 1 on the
-# parent's code (the fused round counted as one call): (the epoch step,
-# a step between epochs), measured with `_step_ops` below
+# dispatcher operations of one step of a one-design pass at R = 1 (the
+# fused round counted as one call): (the epoch step, a step between
+# epochs), measured with `_step_ops` below. They are the parent's counts
+# from before per-row knobs, plus what reading the cycle from the device
+# scalar `state.t` adds: its view `t_next[0]`, the floor division of the
+# sequential stream in `gen_vpn`, the add of the walk deadline (under a
+# walk design) and one expand of the stamp per LRU scatter (the L1 probe
+# and fill, the L2 TLB's and the bypass cache's where the design has them)
 PARENT_STEP_OPS = {
-    "ideal": (434, 434), "pwc": (610, 610), "gpu-mmu": (667, 667),
-    "static": (685, 685), "mask": (897, 845), "mask-tlb": (802, 750),
-    "mask-cache": (734, 682), "mask-dram": (799, 747),
+    "ideal": (437, 437), "pwc": (615, 615), "gpu-mmu": (674, 674),
+    "static": (692, 692), "mask": (906, 854), "mask-tlb": (811, 759),
+    "mask-cache": (741, 689), "mask-dram": (806, 754),
 }
 
 
