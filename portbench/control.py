@@ -1,12 +1,15 @@
-"""The control of `correct`: the plain reference with its float planes in
-bfloat16, the nearest precision below the configuration's float32, put in
-the program's place. The check must refuse it.
+"""The control of `correct`: what the cell's entry type puts in the
+program's place at the nearest precision below the configuration's
+(`entries/<entry>.py`'s `control`). The check must refuse it. The
+simulator's is the plain reference with its float planes in bfloat16.
 
     python3 portbench/control.py --workload <name> --seed <n> [<n> ...]
 
-Runs, in one process on the card, one call of the cell's own rows and
-cycles through the lowered reference for each seed, and prints each
-seed's checks as one JSON line. The benchmark's runs never run it.
+Runs, in one process on the card, the shortest window of the cell's own
+calls (the entry's fewest: one call of the simulator's rows and cycles,
+every input of a prefill cell) through the control for each seed, and
+prints each seed's checks as one JSON line. The benchmark's runs never
+run it.
 """
 import argparse
 import json
@@ -16,34 +19,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def lowered_run(designs, config: dict, device, dtype):
-    """The reference run in `dtype`, in the form of an entry's run."""
-    from portbench import reference
-    from portbench.reference import precision
-
-    def run(mixes, cycles):
-        with precision.lowered(dtype):
-            return {d: reference.run_rows(d, mixes, cycles, device, config)
-                    for d in designs}
-
-    return run
-
-
 def run(name: str, seed: int, device, bench=None, root: Path = ROOT,
-        shrink=None, dtype=None):
+        shrink=None):
     """One control run of cell `name`: (result line, checks)."""
-    import torch
-
     from portbench import harness
-    from portbench.entries import _sim
     bench = harness.load_bench(root / "BENCHMARK.json") if bench is None \
         else bench
     cell = harness.resolve(bench, name, root)
-    designs = cell.traffic["designs"]
-    entry = _sim.sim_entry(
-        cell.config, cell.traffic, device, designs,
-        lowered_run(designs, cell.config, device, dtype or torch.bfloat16),
-        shrink)
+    mod = harness.entry_module(cell, root)
+    entry = mod.control(cell.config, cell.traffic, device, shrink=shrink)
     return harness.run_cell(name, seed, 0.0, False, device=device,
                             bench=bench, root=root, entry=entry)
 

@@ -1,6 +1,7 @@
 """What the simulator's entry types share: the rows of a sweep, set-up,
-the spans of a traced run, and the check of every row against the plain
-reference."""
+the spans of a traced run, the check of every row against the plain
+reference, its control, and what the benchmark's CPU tests take from
+them."""
 from __future__ import annotations
 
 import contextlib
@@ -12,7 +13,7 @@ import torch
 
 from portbench import mixes as mixes_mod
 from portbench import reference
-from portbench.entries import Entry
+from portbench.entries import Entry, Fault, Tests
 
 # cycles of set-up's one warm call, at the cell's own rows and designs
 WARM_CYCLES = 2
@@ -143,3 +144,87 @@ def round_work_recorder(out: list):
         yield
     finally:
         ops.fused_tlb_round, ops.fused_tlb_access_ref = saved
+
+
+def control(config: dict, traffic: dict, device, shrink=None,
+            dtype=None) -> Entry:
+    """The control: the plain reference with its float planes in `dtype`
+    (bfloat16, the nearest precision below the configuration's float32),
+    put in the program's place."""
+    from portbench.reference import precision
+    designs = list(traffic["designs"])
+    dtype = torch.bfloat16 if dtype is None else dtype
+
+    def run(mixes, cycles):
+        with precision.lowered(dtype):
+            return {d: reference.run_rows(d, mixes, cycles, device, config)
+                    for d in designs}
+
+    return sim_entry(config, traffic, device, designs, run, shrink)
+
+
+# ---- what the benchmark's CPU tests plant under a run ---------------------
+
+def _timed(cfg, shrink) -> bool:
+    """Whether a config is the timed calls' (set-up's warm call is not)."""
+    return cfg.sim_cycles == shrink["cycles"]
+
+
+def _unchanged_step(monkeypatch, shrink):
+    """A step that returns its state unchanged."""
+    from repro_torch.sim import runner
+    real = runner.step
+    monkeypatch.setattr(runner, "step", lambda cfg, dp, pm, st, c: st
+                        if _timed(cfg, shrink) else real(cfg, dp, pm, st, c))
+
+
+def _half_the_rows(monkeypatch, shrink):
+    """Half of the rows left out, the other half's answers in their
+    place."""
+    from repro_torch.sim import runner
+    real = runner._run_rows
+
+    def half(cfg, dp, mixes):
+        if not _timed(cfg, shrink):
+            return real(cfg, dp, mixes)
+        keep = (len(mixes) + 1) // 2
+        if not isinstance(dp.use_pwc, torch.Tensor):
+            final = real(cfg, dp, mixes[:keep])
+        else:   # per-row knobs: cut them with the rows
+            dp = type(dp)(*(k[:keep] if isinstance(k, torch.Tensor) else k
+                            for k in dp))
+            final = real(cfg, dp, mixes[:keep])
+        idx = np.arange(len(mixes)) % keep
+        return type(final)(*_take(final, idx))
+    monkeypatch.setattr(runner, "_run_rows", half)
+
+
+def _take(tree, idx):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [type(x)(*_take(x, idx)) if isinstance(x, tuple) else
+                x[idx] for x in tree]
+    return tree[idx]
+
+
+def _altered_answer(monkeypatch, shrink):
+    """One row's answer one ulp off, where it is produced."""
+    from repro_torch.sim import runner
+    real = runner._stats
+    seen = []
+
+    def stats(cfg, st, audit=None):
+        out = real(cfg, st, audit)
+        seen.append(_timed(cfg, shrink))
+        if sum(seen) == 2 and seen[-1]:   # one row's answer, one ulp off
+            out["ipc"] = np.nextafter(out["ipc"], np.inf)
+        return out
+    monkeypatch.setattr(runner, "_stats", stats)
+
+
+# cycle counts no other test file runs the port at
+TESTS = Tests(
+    dry_run={"rows": 4, "cycles": 11, "warm_cycles": 13},
+    faults_shrink={"rows": 5, "cycles": 19, "warm_cycles": 17},
+    faults=tuple(Fault(f, ("rows_mismatched", "rows_missing")) for f in
+                 (_unchanged_step, _half_the_rows, _altered_answer)),
+    control_checks=("rows_mismatched",))

@@ -5,6 +5,9 @@ from __future__ import annotations
 from portbench.entries import Entry
 from portbench.entries import _sim
 
+# the control and the CPU tests' shrinks and faults are the simulator's
+control, TESTS = _sim.control, _sim.TESTS
+
 
 def make(config: dict, traffic: dict, device, shrink=None) -> Entry:
     from repro_torch.sim import runner

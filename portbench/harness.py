@@ -66,13 +66,19 @@ def resolve(bench: dict, name: str, root: Path = ROOT) -> Cell:
     return Cell(config=config, traffic=traffic)
 
 
+def entry_module(cell: Cell, root: Path = ROOT):
+    """The module of the entry type the cell's traffic names: its `make`,
+    `control` and `TESTS`."""
+    kind = cell.traffic["entry"]
+    return _load_file(root / "portbench" / "entries" / f"{kind}.py",
+                      f"portbench_entry_{kind}")
+
+
 def make_entry(cell: Cell, device, root: Path = ROOT,
                shrink: Optional[dict] = None) -> Entry:
     """The entry of the type the cell's traffic names."""
-    kind = cell.traffic["entry"]
-    mod = _load_file(root / "portbench" / "entries" / f"{kind}.py",
-                     f"portbench_entry_{kind}")
-    return mod.make(cell.config, cell.traffic, device, shrink=shrink)
+    return entry_module(cell, root).make(cell.config, cell.traffic, device,
+                                         shrink=shrink)
 
 
 def metrics_of(bench: dict, cell: str, kind: str) -> List[dict]:
@@ -104,8 +110,8 @@ def _sync(device) -> None:
 
 
 def _window(entry: Entry, seed: int, seconds: float) -> List[Call]:
-    """Whole calls from the window's start until one ends past `seconds`;
-    a call that raises ends the window."""
+    """Whole calls from the window's start until one ends past `seconds`
+    and there are `entry.min_calls`; a call that raises ends the window."""
     calls: List[Call] = []
     w0 = time.perf_counter()
     while True:
@@ -119,7 +125,8 @@ def _window(entry: Entry, seed: int, seconds: float) -> List[Call]:
             c.error = f"{type(e).__name__}: {e}"
         c.end = time.perf_counter()
         calls.append(c)
-        if c.error or c.end - w0 >= seconds:
+        if c.error or (c.end - w0 >= seconds
+                       and len(calls) >= entry.min_calls):
             return calls
 
 
@@ -135,15 +142,24 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     benchmark's own CPU tests; `entry` puts another entry (the control)
     in the program's place."""
     t0 = time.perf_counter() if t_start is None else t_start
+    marks = [("start and imports", time.perf_counter())]
     bench = load_bench() if bench is None else bench
     if entry is None:
         entry = make_entry(resolve(bench, name, root), device, root, shrink)
     on_cuda = torch.device(device).type == "cuda"
+    marks.append(("entry", time.perf_counter()))
 
-    # ---- set-up: libraries, every shape the window uses ----------------
+    # ---- set-up: the seed's weights and inputs, libraries, every shape --
+    if entry.prepare is not None:
+        entry.prepare(seed)
+        marks.append(("prepare", time.perf_counter()))
     entry.warm()
     _sync(device)
-    setup_s = time.perf_counter() - t0
+    marks.append(("warm", time.perf_counter()))
+    setup_s = marks[-1][1] - t0
+    log(f"portbench: set-up {setup_s:.3f} s: " + ", ".join(
+        f"{what} {t - t_prev:.3f} s" for (what, t), t_prev in
+        zip(marks, [t0] + [t for _, t in marks])))
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
 

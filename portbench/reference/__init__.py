@@ -5,7 +5,8 @@ It imports nothing of the program under test. The workload matrices come
 from the bench names (`workloads.app_matrix`), the designs from their
 names (`design.get_design`), the shared caches' round from
 `fused_round` (tensor ops, no kernel). `run_rows` gives, for each row, the
-per-app stats dict the program's runner returns for it.
+per-app stats dict the program's runner returns for it. `moe_lm` is the
+prefill cells' plain reference, a module of its own.
 """
 from __future__ import annotations
 

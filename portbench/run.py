@@ -20,6 +20,13 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+# Python's bytecode of every module imported from here on, the installed
+# libraries' too, kept at a fixed path inside the checkout and written even
+# where the environment asks for none (PYTHONDONTWRITEBYTECODE): without
+# it every run compiles torch's modules from source again, some 8 s of its
+# set-up on an 8-core host; with it only a checkout's first run does
+sys.pycache_prefix = str(ROOT / "build" / "pycache")
+sys.dont_write_bytecode = False
 
 
 def fail(msg: str, code: int) -> None:

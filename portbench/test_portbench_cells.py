@@ -1,8 +1,10 @@
-"""The harness end to end on the CPU, at a handful of rows and a few
-cycles: each cell's traffic resolves, the result line has the
-contract's keys, a traced run reports every per-layer metric named for
-the cell; and a configuration, a traffic mix, an entry type and a metric
-can be added as new files with no edit to a file that is there."""
+"""The harness end to end on the CPU, each cell cut to the size its entry
+type gives the dry run (`TESTS.dry_run`: the simulator's at a handful of
+rows and a few cycles): each cell's traffic resolves, the result line has
+the contract's keys, a traced run reports every per-layer metric named
+for the cell; and a configuration, a traffic mix, an entry type and a
+metric can be added as new files with no edit to a file that is there,
+the new kind of cell going through the control and the per-cell tests."""
 import hashlib
 import json
 import shutil
@@ -11,14 +13,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from portbench import harness, mixes
+from portbench import harness, mixes, test_portbench_faults
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
-# cycle counts no other test file runs the port at
-SHRINK = {"rows": 4, "cycles": 11, "warm_cycles": 13}
 
 
 @pytest.fixture(autouse=True)
@@ -33,18 +33,19 @@ def quiet(msg):
     pass
 
 
-@pytest.mark.parametrize("traced", [False, True])
-@pytest.mark.parametrize("cell", CELLS)
-def test_dry_run(cell, traced):
+def check_dry_run(cell, traced, bench=BENCH, root=ROOT):
+    """One CPU run of `cell` of `bench` (files under `root`) at its entry
+    type's dry-run size: the contract's keys, correct, every metric."""
+    shrink = test_portbench_faults.entry_tests(cell, bench, root).dry_run
     result, checks = harness.run_cell(cell, 2**31 + 11, 0.0, traced,
-                                      device="cpu", shrink=SHRINK,
-                                      log=quiet)
+                                      device="cpu", bench=bench, root=root,
+                                      shrink=shrink, log=quiet)
     assert list(result)[:5] == ["correct", "attempted", "failed",
                                 "metrics", "device"]
     assert list(result)[-1] == "checks" and result["checks"] == checks
     assert result["correct"] is True and result["failed"] == 0
     kind = "per_layer" if traced else "end_to_end"
-    want = {m["name"] for m in harness.metrics_of(BENCH, cell, kind)}
+    want = {m["name"] for m in harness.metrics_of(bench, cell, kind)}
     assert set(result["metrics"]) == want and want
     for m in result["metrics"].values():
         assert m["value"] is not None and m["unit"]
@@ -55,6 +56,12 @@ def test_dry_run(cell, traced):
         assert 0 < len(result["breakdown"]["device_ops"]) <= 10
         assert 0 < len(result["breakdown"]["idle_gaps"]) <= 10
     json.dumps(result)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("cell", CELLS)
+def test_dry_run(cell, traced):
+    check_dry_run(cell, traced)
 
 
 def test_every_seed_gives_the_same_rows():
@@ -152,15 +159,15 @@ def test_a_cell_is_added_as_new_files(tmp_path):
 
 
 SOLVE_ENTRY = '''"""A cell of another kind than the simulator's: batched
-linear solves, judged against NumPy's."""
+linear solves in float64, judged against NumPy's."""
 import numpy as np
 import torch
 
-from portbench.entries import Entry
+from portbench.entries import Entry, Fault, Tests
 
 
-def make(config, traffic, device, shrink=None):
-    n, batch = config["n"], traffic["batch"]
+def make(config, traffic, device, shrink=None, dtype=torch.float64):
+    n, batch = config["n"], (shrink or traffic)["batch"]
 
     def plan(seed, k):
         rng = np.random.default_rng([seed & (2**64 - 1), k])
@@ -168,18 +175,39 @@ def make(config, traffic, device, shrink=None):
         return a, rng.standard_normal((batch, n, 1))
 
     def call(p):
-        a, b = (torch.tensor(x, device=device) for x in p)
-        return torch.linalg.solve(a, b).cpu().numpy()
+        a, b = (torch.tensor(x, device=device, dtype=dtype) for x in p)
+        return torch.linalg.solve(a, b).double().cpu().numpy()
 
     def check(calls):
         done = [c for c in calls if c.results is not None]
-        worst = max(float(np.abs(c.results - np.linalg.solve(*c.plan))
-                          .max()) for c in done)
+        errs = np.array([float(np.abs(x - y).max()) for c in done
+                         for x, y in zip(c.results,
+                                         np.linalg.solve(*c.plan))])
         missing = batch * (len(calls) - len(done))
-        return {"max_abs_err": {"value": worst, "limit": 1e-9}}, missing
+        return {"solves_mismatched": {"value": int((errs > 1e-9).sum()),
+                                      "limit": 0},
+                "solves_missing": {"value": missing, "limit": 0},
+                "max_abs_err": {"value": float(errs.max(initial=0.0)),
+                                "limit": 1e-9}}, missing
 
     return Entry(answers=batch, work=batch, plan=plan, call=call,
                  warm=lambda: call(plan(0, 0)), check=check)
+
+
+def control(config, traffic, device, shrink=None):
+    """The solves in float32, the precision below float64."""
+    return make(config, traffic, device, shrink, dtype=torch.float32)
+
+
+def _answer_altered(monkeypatch, shrink):
+    real = torch.linalg.solve
+    monkeypatch.setattr(torch.linalg, "solve",
+                        lambda a, b: real(a, b) + 1e-6)
+
+
+TESTS = Tests(dry_run={"batch": 4}, faults_shrink={"batch": 3},
+              faults=(Fault(_answer_altered, ("solves_mismatched",)),),
+              control_checks=("solves_mismatched",))
 '''
 
 
@@ -188,7 +216,8 @@ def test_a_cell_of_another_kind_is_added_as_new_files(tmp_path):
     reference and comparison, in its entry type), a configuration, a
     traffic mix and an end-to-end and a per-layer metric of its own, each
     a new file plus new entries in a copy of BENCHMARK.json, run through
-    the harness as it is."""
+    the harness as it is, and through the control and the per-cell tests
+    (`check_dry_run`, `test_portbench_faults`'s checks) in the copy."""
     before = _digest(HERE)
     for sub in ("configs", "traffic", "entries", "metrics"):
         shutil.copytree(HERE / sub, tmp_path / "portbench" / sub)
@@ -231,4 +260,12 @@ def test_a_cell_of_another_kind_is_added_as_new_files(tmp_path):
             assert result["device"]["busy_s"] > 0
         else:
             assert set(result["metrics"]) == {"setup_s", "solves_per_s"}
+    faults = test_portbench_faults
+    for traced in (False, True):
+        check_dry_run("solve.batch", traced, bench, tmp_path)
+    faults.check_sound("solve.batch", bench, tmp_path)
+    faults.check_control("solve.batch", bench, tmp_path)
+    (fault,) = faults.entry_tests("solve.batch", bench, tmp_path).faults
+    with pytest.MonkeyPatch.context() as mp:
+        faults.check_fault("solve.batch", fault, mp, bench, tmp_path)
     assert _digest(HERE) == before

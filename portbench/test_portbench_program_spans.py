@@ -16,7 +16,9 @@ from portbench import trace as trace_mod
 HERE = Path(__file__).resolve().parent
 READERS = ("step_host_ms_per_cycle", "to_host_ms_per_call",
            "to_host_mb_per_call")
-CELLS = [w["name"] for w in harness.load_bench()["workloads"]]
+# the cells the transfer's readers report in
+(CELLS,) = [m["workloads"] for m in harness.load_bench()["per_layer"]
+            if m["name"] == "to_host_mb_per_call"]
 # cycle counts no other test file runs the port at
 SHRINK = {"rows": 3, "cycles": 9, "warm_cycles": 8}
 
