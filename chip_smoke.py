@@ -334,6 +334,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                the host ms a pass-cycle, the Python launches (runtime
                launch calls) and device ms a cycle, graphed and eager, and
                the key's memory pool and buffer bytes.
+ 22. mla flash -- `flash_attention_bhsd` with q/k and v of two widths
+               and a given scale (latent attention: 192 / 128, the
+               softmax scale 0.114721): the instance <192, 128> and the
+               staged pairs against the plain version within the rounding
+               bound; at the prefill cell's shapes (1 x 32768, 2 x 16384,
+               16 heads, causal) the time, the bound by operations, the
+               last 256 rows against the plain arithmetic, and
+               `scaled_dot_product_attention`'s time and output beside it.
 
 The line before the last is the card's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. Needs one CUDA device; exits
@@ -743,15 +751,15 @@ def flash_inputs(torch, np, S, H, KV, dh, dtype, seed, B=2):
             for n in (H, KV, KV)]
 
 
-def rounding_spread(torch, q, k, v, causal, window):
+def rounding_spread(torch, q, k, v, causal, window, scale=None):
     """sqrt(sum_j p_j^2 v_j^2) for each output element, p the fp32 softmax
-    of the plain version: the spread of a sum of per-key rounding errors
-    of p_j v_j."""
+    of the plain version (scores times `scale`, by default 1/sqrt(dh)):
+    the spread of a sum of per-key rounding errors of p_j v_j."""
     B, H, Sq, dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     s = torch.einsum("bkgqd,bksd->bkgqs",
-                     q.float().reshape(B, KV, H // KV, Sq, dh),
-                     k.float()) / dh ** 0.5
+                     q.float().reshape(B, KV, H // KV, Sq, dh), k.float())
+    s = s / dh ** 0.5 if scale is None else s * scale
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     hide = torch.zeros((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -761,7 +769,7 @@ def rounding_spread(torch, q, k, v, causal, window):
         hide |= kpos <= qpos - window
     p = torch.softmax(s.masked_fill(hide, -1e30), dim=-1)
     return torch.einsum("bkgqs,bksd->bkgqd", p * p,
-                        v.float() ** 2).sqrt().reshape(B, H, Sq, dh)
+                        v.float() ** 2).sqrt().reshape(B, H, Sq, -1)
 
 
 def flash_compare(torch, kernel, ref, q, k, v, causal, window, tol,
@@ -778,12 +786,14 @@ def flash_compare(torch, kernel, ref, q, k, v, causal, window, tol,
     deviations out for longer rows. Late rows of a long prompt average
     ~1-2k values of a few hundredths, and there the limit is ~1.5e-3
     against tol's ~2e-2. Returns the max |difference|, its largest share
-    of the limit, and the median |o|."""
+    of the limit, and the median |o|. A `scale` among `blocks` goes to
+    both sides."""
     got = kernel(q, k, v, causal=causal, window=window, **blocks).float()
-    want = ref(q, k, v, causal=causal, window=window).float()
+    scale = {"scale": blocks["scale"]} if "scale" in blocks else {}
+    want = ref(q, k, v, causal=causal, window=window, **scale).float()
     if rounding:
         limit = 2.0 ** -7 * (want.abs() + 4 * rounding_spread(
-            torch, q, k, v, causal, window))
+            torch, q, k, v, causal, window, **scale))
     else:
         limit = tol + tol * want.abs()
     torch.cuda.synchronize()
@@ -4193,6 +4203,183 @@ def replay_phase(torch, np, card, fused_tlb_round):
     return out
 
 
+# ---- phase 22: flash with q/k and v of two widths (latent attention) ------
+MLA_SCALE = 0.114721                  # deepseek-v2-lite's (192^-1/2 mscale^2)
+# (S, H, KV, causal, window, v_pad): the <192, 128> instance (ragged S,
+# bidirectional, GQA with a window), the last with v read from rows of
+# 128 + 1 columns, an unaligned layout, so staged at the same widths
+MLA_FLASH = [(1000, 16, 16, True, None, 0),
+             (512, 16, 16, False, None, 0),
+             (300, 8, 2, True, 90, 0),
+             (256, 4, 4, True, None, 1)]
+# (dqk, dv, dtype): pairs of unequal widths no instance takes, refused
+MLA_REFUSED = [(160, 128, "bfloat16"), (192, 64, "bfloat16"),
+               (192, 100, "bfloat16"), (128, 64, "bfloat16"),
+               (192, 128, "float32")]
+MLA_FLASH_TIMED = [(1, 32768), (2, 16384)]     # the cell's shapes, H = 16
+MLA_ROWS = 256                        # query rows a block of the full check
+
+
+def mla_inputs(torch, np, S, H, KV, dqk, dv, dtype, seed, B=2, v_pad=0):
+    """q, k (B, heads, S, dqk) and v (B, KV, S, dv) views of (B, S, heads,
+    d) normals on the card, as the model passes them; v's rows `v_pad`
+    columns wider than dv where asked."""
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = [torch.tensor(rng.randn(B, S, n, d), dtype=torch.float32,
+                            device="cuda").to(dt)
+               for n, d in ((H, dqk), (KV, dqk), (KV, dv))]
+    if v_pad:
+        v = torch.zeros(B, S, KV, dv + v_pad, dtype=dt,
+                        device="cuda")[..., :dv].copy_(v)
+    return [t.transpose(1, 2) for t in (q, k, v)]
+
+
+def full_check(torch, o, q, k, v, scale, rows):
+    """The kernel's output `o` (B, H, S, dv) on every query row against
+    the plain arithmetic (fp32 scores and softmax, p rounded to bf16), by
+    `flash_compare`'s rounding bound, `rows` query rows at a time against
+    the keys they see (the whole plain version at S = 32,768 would hold
+    68 GB of scores). The products run on TF32 tensor cores: q, k, v and
+    the rounded p are bf16 values, exact in TF32, so those products are
+    the plain version's; the spread's squares are not (2^-11 relative
+    each), so the spread is taken times 1 - 2^-9, which keeps the bound
+    from widening. Returns (max |difference|, its largest share of the
+    bound)."""
+    S = q.shape[2]
+    pos = torch.arange(S, device=q.device)
+    err_max = share_max = 0.0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for a in range(0, S, rows):
+            b = min(a + rows, S)
+            vb = v[:, :, :b].float()
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, a:b].float(),
+                             k[:, :, :b].float()) * scale
+            p = torch.softmax(s.masked_fill_(pos[None, :b] > pos[a:b, None],
+                                             -1e30), dim=-1)
+            del s
+            want = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vb)
+            spread = torch.einsum("bhqk,bhkd->bhqd", p.square_(),
+                                  vb.square_()).sqrt_() * (1 - 2.0 ** -9)
+            del p, vb
+            err = (o[:, :, a:b].float() - want).abs()
+            limit = 2.0 ** -7 * (want.abs() + 4 * spread)
+            err_max = max(err_max, float(err.max()))
+            share_max = max(share_max, float((err / limit).max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if share_max > 1:
+        raise AssertionError(f"flash <192, 128> != plain version at S = {S}:"
+                             f" {share_max:.3g}x the rounding bound")
+    return err_max, share_max
+
+
+def mla_flash_phase(torch, np, card, kernel):
+    """Phase 22: `flash_attention_bhsd` with v narrower than q and k and a
+    given scale (latent attention) against the plain version through the
+    instance <192, 128> (one call staged at its widths), the pairs no
+    instance takes refused before a launch; then at the cell's shapes its
+    time, bound and `scaled_dot_product_attention`'s, every query row
+    against the plain arithmetic and SDPA's output beside it. Returns the
+    entry of the JSON line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    t0 = time.perf_counter()
+    zero_counts(kernel)
+    kernel.staged = 0
+    errs, shares = [], []
+    for S, H, KV, causal, window, v_pad in MLA_FLASH:
+        q, k, v = mla_inputs(torch, np, S, H, KV, 192, 128, "bfloat16",
+                             S + 128, v_pad=v_pad)
+        err, share, _ = flash_compare(
+            torch, kernel, attention_ref, q, k, v, causal, window,
+            FLASH_TOL["bfloat16"], rounding=True, block_q=S, block_k=S,
+            scale=MLA_SCALE)
+        errs.append(err)
+        shares.append(share)
+    want_staged = sum(1 for case in MLA_FLASH if case[-1])
+    routed(kernel, "wgmma", len(MLA_FLASH), "two-width cases")
+    if kernel.staged != want_staged:
+        raise AssertionError(f"flash two widths: {kernel.staged} staged, "
+                             f"want {want_staged}")
+    zero_counts(kernel)
+    for dqk, dv, dtype in MLA_REFUSED:
+        q, k, v = mla_inputs(torch, np, 256, 4, 4, dqk, dv, dtype, 3)
+        try:
+            kernel(q, k, v, causal=True, scale=MLA_SCALE)
+        except ValueError as e:
+            if "instance takes" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"flash took q/k {dqk} and v {dv} {dtype}")
+    routed(kernel, "wgmma", 0, "refused pairs")
+    log(f"[mla flash] kernel == plain version on {len(MLA_FLASH)} bf16 "
+        f"<192, 128> cases ({want_staged} staged; largest share "
+        f"{max(shares):.3g} of the rounding bound, max |err| "
+        f"{max(errs):.3g}); {len(MLA_REFUSED)} other pairs refused before "
+        f"a launch [{card}]")
+    timed = []
+    for B, S in MLA_FLASH_TIMED:
+        H = 16
+        q, k, v = mla_inputs(torch, np, S, H, H, 192, 128, "bfloat16", 0,
+                             B=B)
+        zero_counts(kernel)
+        staged = kernel.staged
+        run = lambda: kernel(q, k, v, causal=True, scale=MLA_SCALE)  # noqa
+        o = run()
+        routed(kernel, "wgmma", 1, f"B={B} S={S}")
+        if kernel.staged != staged:
+            raise AssertionError("the cell's shape was staged")
+        err, share = full_check(torch, o, q, k, v, MLA_SCALE, MLA_ROWS)
+        ms = time_events(torch, run, 5, 1)
+        flops = 2 * (192 + 128) * B * H * visible_pairs(np, S, S, True, None)
+        nbytes = 2 * (2 * q.numel() + 2 * v.numel())
+        bound_ms = max(flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S) \
+            * 1e3
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        lib_ms = lib_err = None
+        try:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qc, kc, vc, is_causal=True, scale=MLA_SCALE)
+            with torch.nn.attention.sdpa_kernel([
+                    torch.nn.attention.SDPBackend.FLASH_ATTENTION,
+                    torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION,
+                    torch.nn.attention.SDPBackend.CUDNN_ATTENTION]):
+                ref_o = lib()
+                lib_ms = time_events(torch, lib, 5, 1)
+            lib_err = float((ref_o.float() - o.float()).abs().max())
+            del ref_o
+        except RuntimeError as e:      # no fused SDPA backend takes it
+            log(f"[mla flash] scaled_dot_product_attention refused: "
+                f"{str(e).splitlines()[0][:200]}")
+        timed.append(dict(B=B, S=S, H=H, ms=ms, bound_ms=bound_ms,
+                          bound_share=bound_ms / ms,
+                          tflops=flops / ms / 1e9, library_ms=lib_ms,
+                          library_max_abs_diff=lib_err, max_abs_err=err,
+                          bound_share_of_err=share))
+        log(f"[mla flash] B={B} S={S} H=16 q/k 192 v 128 causal bf16 "
+            f"(<192, 128>): {ms:.3f} ms on the device, {flops / ms / 1e9:.1f}"
+            f" TFLOP/s, {bound_ms / ms:.3f} of the bound {bound_ms:.3f} ms "
+            f"by operations ({flops:.4g} flop); every row: max "
+            f"|err| {err:.3g}, {share:.3g}x the rounding bound; "
+            f"scaled_dot_product_attention {lib_ms} ms, max |diff| "
+            f"{lib_err} [{card}]")
+        del q, k, v, o, qc, kc, vc
+        torch.cuda.empty_cache()
+    log(f"[mla flash] phase 22 took {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    return dict(name="flash_attention_qk192_v128", route="cuda",
+                kernel="wgmma", source=FLASH_SOURCES["wgmma"],
+                replaces="none: latent attention's v is narrower than q, k",
+                launches=len(MLA_FLASH) + len(MLA_FLASH_TIMED),
+                max_abs_err=max(errs), cases=len(MLA_FLASH),
+                refused=len(MLA_REFUSED),
+                timed=timed)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4426,6 +4613,9 @@ def main():
     t0 = time.perf_counter()
     graphs = replay_phase(torch, np, card, fused_tlb_round)
     log(f"[replay] phase 21 took {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # ---- 22. flash with two head widths ---------------------------------
+    contracts.append(mla_flash_phase(torch, np, card, flash_attention_bhsd))
 
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
         f" s [{card}]")

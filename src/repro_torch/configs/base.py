@@ -51,6 +51,14 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # --- serving / paged-KV (the MASK-managed memory) ---
     kv_page_size: int = 128               # tokens per KV page
+    def __getattr__(self, name):
+        """`PortModelConfig`'s settings, read from a reference model, at
+        their defaults, which leave it as it is (they are no fields here,
+        so that `dataclasses.asdict` of one stays the reference's)."""
+        try:
+            return PORT_DEFAULTS[name]
+        except KeyError:
+            raise AttributeError(name) from None
 
     @property
     def head_dim(self) -> int:
@@ -84,6 +92,23 @@ class ModelConfig:
         return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Width of a q or k head: the MLA's nope + rope parts, else
+        head_dim."""
+        return (self.qk_nope_head_dim + self.qk_rope_head_dim
+                if self.is_mla else self.head_dim)
+
+    @property
+    def latent_dim(self) -> int:
+        """Columns of the MLA's cache a token a layer: the normed latent
+        and the rotated k_pe."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
     def sub_quadratic(self) -> bool:
         """Whether the arch supports long_500k (sub-quadratic attention path)."""
         return self.family in ("ssm", "hybrid") or self.sliding_window is not None
@@ -92,6 +117,12 @@ class ModelConfig:
     # Parameter counting (used for MODEL_FLOPS = 6*N*D in the roofline)
     # ------------------------------------------------------------------
     def _attn_params(self) -> int:
+        if self.is_mla:
+            H, r = self.n_heads, self.kv_lora_rank
+            q = self.d_model * H * self.qk_head_dim
+            kv_a = self.d_model * self.latent_dim + r      # + latent norm
+            kv_b = r * H * (self.qk_nope_head_dim + self.v_head_dim)
+            return q + kv_a + kv_b + H * self.v_head_dim * self.d_model
         dh = self.head_dim
         q = self.d_model * self.n_heads * dh
         kv = 2 * self.d_model * self.n_kv_heads * dh
@@ -111,7 +142,10 @@ class ModelConfig:
         return in_proj + out_proj + conv + extra
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Sequence of per-layer kinds: 'attn' | 'ssm' for the mixer."""
+        """Sequence of per-layer kinds: 'attn' | 'mla' | 'ssm' for the
+        mixer."""
+        if self.is_mla:
+            return tuple("mla" for _ in range(self.n_layers))
         if self.family == "ssm":
             return tuple("ssm" for _ in range(self.n_layers))
         if self.is_hybrid:
@@ -126,7 +160,8 @@ class ModelConfig:
         if not self.is_moe:
             return tuple("dense" for _ in range(self.n_layers))
         return tuple(
-            "moe" if (i % self.moe_every) == (self.moe_every - 1) else "dense"
+            "moe" if i >= self.first_dense_layers
+            and (i % self.moe_every) == (self.moe_every - 1) else "dense"
             for i in range(self.n_layers)
         )
 
@@ -138,10 +173,12 @@ class ModelConfig:
         kinds, ffns = self.layer_kinds(), self.ffn_kinds()
         for kind, ffn in zip(kinds, ffns):
             total += 2 * self.d_model  # norms
-            total += self._attn_params() if kind == "attn" else self._ssm_params()
+            total += (self._attn_params() if kind in ("attn", "mla")
+                      else self._ssm_params())
             if ffn == "moe":
                 e = self.top_k if active_only else self.n_experts
-                total += e * self._dense_ffn_params(self.expert_d_ff)
+                total += (e + self.n_shared_experts) * \
+                    self._dense_ffn_params(self.expert_d_ff)
                 total += self.d_model * self.n_experts  # router
             else:
                 total += self._dense_ffn_params(self.d_ff)
@@ -153,6 +190,36 @@ class ModelConfig:
             total += self.n_layers * (self._attn_params() + self.d_model)
         total += self.d_model  # final norm
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """An architecture the port runs past the reference's (DeepSeek-V2):
+    ModelConfig's fields and these."""
+
+    # --- latent attention (MLA): k and v from a latent of kv_lora_rank a
+    # token; q/k heads of qk_nope + qk_rope columns, v heads of
+    # v_head_dim; kv_lora_rank 0 means no MLA ---
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # --- YaRN RoPE (rope_scaling of type yarn); factor 1: plain RoPE ---
+    yarn_factor: float = 1.0
+    yarn_original_max_pos: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+    # --- MoE ---
+    n_shared_experts: int = 0             # one SwiGLU of n x expert width
+    first_dense_layers: int = 0           # leading dense FFN layers
+    norm_topk_prob: bool = True           # renormalise the top-k gates
+
+
+PORT_DEFAULTS = {f.name: f.default
+                 for f in dataclasses.fields(PortModelConfig)
+                 if f.name not in ModelConfig.__dataclass_fields__}
 
 
 @dataclasses.dataclass(frozen=True)

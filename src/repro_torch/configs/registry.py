@@ -22,6 +22,7 @@ from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA
 from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
 from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
 from repro_torch.configs.whisper_base import CONFIG as WHISPER
+from repro_torch.configs.deepseek_v2_lite import CONFIG as DEEPSEEK_V2_LITE
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c
@@ -30,6 +31,11 @@ ARCHS: Dict[str, ModelConfig] = {
         QWEN3, JAMBA, OLMOE, MIXTRAL, WHISPER,
     )
 }
+
+# Architectures the port runs that the reference has not: `get_model` finds
+# them, but they are no cell of `all_cells()` or the dry run, whose lists
+# the tests hold equal to the reference's.
+PORT_ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (DEEPSEEK_V2_LITE,)}
 
 # ZeRO-3 (FSDP) over the data axis for everything whose optimizer state
 # does not comfortably fit TP-only (>= ~8B params); the giants additionally
@@ -60,9 +66,10 @@ _TRAIN_MICROBATCHES = {
 
 
 def get_model(arch: str) -> ModelConfig:
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    return ARCHS[arch]
+    known = {**ARCHS, **PORT_ARCHS}
+    if arch not in known:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(known)}")
+    return known[arch]
 
 
 def get_run_config(arch: str, shape_name: str) -> RunConfig:

@@ -70,13 +70,23 @@
 //   S's 64 registers beside a 128-register accumulator would not fit a
 //   consumer's 240. P.V past 128 columns is two wgmmas on the two halves
 //   of the accumulator (128 + 64, or 128 + 128 columns).
+// - v may be narrower than q and k (DV < DHP): latent attention (MLA,
+//   DeepSeek-V2) has q/k heads of 192 (128 + a 64-column rotary part) and
+//   v heads of 128. The instance <192, 128, 128> reads q and k through
+//   three boxes and v through two, keeps a 128-column accumulator and
+//   writes 128 columns, so P.V costs what it does at dh 128: padding v to
+//   192 would add half again to those products and a copy of v. Its
+//   registers are those of <128, 128, 128> (S and the accumulator 64
+//   each), so it keeps 128-key tiles: Q 48 KB and two stages of K (48 KB)
+//   and V (32 KB), 208 KB of shared memory. The caller gives the scale.
 //
 // Resources (`-Xptxas -v`, build/repro_torch/flash_attention_sm90-*.log):
-// every instance <DHP, BK> (<64, 128>, <128, 128>, <192, 64>, <256, 64>)
-// is allocated 168 registers a thread at launch (384 threads, one CTA an
-// SM; setmaxnreg moves them to the consumers), no stack, no spill.
-// Dynamic shared memory, Q + 2 stages of K and V + 1 KB of alignment:
-// 82,944 B (64), 164,864 B (128), 148,480 B (192), 197,632 B (256).
+// every instance <DHP, DV, BK> (<64, 64, 128>, <128, 128, 128>, <192, 192,
+// 64>, <256, 256, 64>, <192, 128, 128>) is allocated 168 registers a
+// thread at launch (384 threads, one CTA an SM; setmaxnreg moves them to
+// the consumers), no stack, no spill. Dynamic shared memory, Q + 2 stages
+// of K and V + 1 KB of alignment: 82,944 B (64), 164,864 B (128), 148,480
+// B (192), 197,632 B (256), 214,016 B (192 / 128).
 
 #include <cuda.h>            // CUtensorMap and its enums; the encode
 #include <cuda_bf16.h>       // function is looked up through the runtime,
@@ -456,26 +466,28 @@ __device__ __forceinline__ Work work_tile(int w, int H, int B, int nqt,
   return t;
 }
 
-// DHP: the head dim as tiled, 64, 128, 192 or 256 (a narrower head is
-// read through the next one up, its extra columns zero-filled by TMA); BK:
-// keys per K/V tile, 128, or 64 at DHP 192 and 256, where 128-key tiles
-// would take more shared memory than a block has, and S next to the wide
-// accumulator more registers.
+// DHP: q's and k's head dim as tiled, 64, 128, 192 or 256 (a narrower head
+// is read through the next one up, its extra columns zero-filled by TMA);
+// DV: v's and o's, DHP or narrower; BK: keys per K/V tile, 128, or 64 at
+// DHP = DV = 192 and 256, where 128-key tiles would take more shared memory
+// than a block has, and S next to the wide accumulator more registers.
 // Persistent: each CTA walks the work tiles blockIdx.x, + gridDim.x, ...;
 // the K/V ring runs on across tiles, and the next tile's Q loads while the
 // consumers finish the last one's products and store its output.
-template <int DHP, int BK>
+template <int DHP, int DV, int BK>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    __nv_bfloat16* __restrict__ o, Strides os, int H, int B,
-                   int G, int Sq, int Sk, int dh, int causal, int has_window,
+                   int G, int Sq, int Sk, int dv, int causal, int has_window,
                    int window, float scale_log2) {
-  constexpr int NB = DHP / BOX_COLS;       // boxes per tile
+  constexpr int NB = DHP / BOX_COLS;       // boxes per Q or K tile
+  constexpr int NBV = DV / BOX_COLS;       // boxes per V tile
   constexpr int QTILE = NB * BOX_BYTES;    // bytes of a Q tile
   constexpr int KBOX = BK * 128;           // bytes of a K or V box
-  constexpr int TILE = NB * KBOX;          // bytes of a K or V tile
+  constexpr int TILE = NB * KBOX;          // bytes of a K tile
+  constexpr int VTILE = NBV * KBOX;        // bytes of a V tile
   extern __shared__ uint8_t smem_raw[];
   // Q full, Q free; per stage K full, V full, K free, V free
   __shared__ __align__(8) uint64_t bars[2 + 4 * STAGES];
@@ -483,7 +495,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // swizzle atoms must start on a 1 KB boundary
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = q_s + QTILE;                  // stage i: + i * TILE
-  const uint32_t v_s = k_s + STAGES * TILE;
+  const uint32_t v_s = k_s + STAGES * TILE;          // stage i: + i * VTILE
   const uint32_t bar_q = smem_u32(&bars[0]);
   const uint32_t bar_qfree = bar_q + 8;
   const uint32_t bar_k = bar_qfree + 8;              // stage i: + 8 i
@@ -529,9 +541,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             tma_load(k_s + st * TILE + j * KBOX, &kmap, bar_k + 8 * st,
                      j * BOX_COLS, k0, t.h / G, t.b);
           mbar_wait(bar_vfree + 8 * st, free_phase);
-          mbar_expect_tx(bar_v + 8 * st, TILE);
-          for (int j = 0; j < NB; ++j)
-            tma_load(v_s + st * TILE + j * KBOX, &vmap, bar_v + 8 * st,
+          mbar_expect_tx(bar_v + 8 * st, VTILE);
+          for (int j = 0; j < NBV; ++j)
+            tma_load(v_s + st * VTILE + j * KBOX, &vmap, bar_v + 8 * st,
                      j * BOX_COLS, k0, t.h / G, t.b);
         }
       }
@@ -545,7 +557,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int col = 2 * (lane % 4);          // its columns in each 8: col, +1
     const uint32_t q_rows = q_s + c * 64 * 128;
     const Mask mk{Sk, causal, has_window, window};
-    float acc[DHP / 2], s[BK / 2], m[2], l[2], corr[2];
+    float acc[DV / 2], s[BK / 2], m[2], l[2], corr[2];
     uint32_t p[BK / 4];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
@@ -562,7 +574,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                (has_window && k0 <= r0 + 63 - window);
       };
 #pragma unroll
-      for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       m[0] = m[1] = MASKED;
       l[0] = l[1] = 0.f;
 
@@ -598,7 +610,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           wgmma_fence();
           issue_qk<DHP, BK>(s, q_rows, k_s + st * TILE);
           mbar_wait(bar_v + 8 * pst, pph);
-          issue_pv<DHP, BK>(acc, p, v_s + pst * TILE);
+          issue_pv<DV, BK>(acc, p, v_s + pst * VTILE);
           wgmma_wait<1>();                   // the scores are in
           reg_fence(s);
           mbar_arrive(bar_kfree + 8 * st);
@@ -612,7 +624,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           // a warp whose rows kept their maxima has nothing to rescale
           if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-            for (int j = 0; j < DHP / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+            for (int j = 0; j < DV / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
           }
 #pragma unroll
           for (int j = 0; j < BK / 4; ++j)
@@ -624,7 +636,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         reg_fence(acc);
         reg_fence(p);
         wgmma_fence();
-        issue_pv<DHP, BK>(acc, p, v_s + st * TILE);
+        issue_pv<DV, BK>(acc, p, v_s + st * VTILE);
         wgmma_wait<0>();
         reg_fence(acc);
         mbar_arrive(bar_vfree + 8 * st);
@@ -648,9 +660,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (qi >= Sq) continue;
         __nv_bfloat16* orow = ob + qi * os.s;
 #pragma unroll
-        for (int j = 0; j < DHP / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           const int d = 8 * j + col;
-          if (d < dh)
+          if (d < dv)
             *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16(
                 acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
         }
@@ -703,16 +715,16 @@ CUresult encode(CUtensorMap* map, const void* ptr, int dh, int S, int heads,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DHP, int BK>
+template <int DHP, int DV, int BK>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
            const CUtensorMap& vm, void* o, int B, int H, int KV, int Sq,
-           int Sk, int dh, Strides os, int causal, int has_window, int window,
+           int Sk, int dv, Strides os, int causal, int has_window, int window,
            float scale, cudaStream_t stream) {
   // Q, then STAGES K and V tiles, and room to align to 1 KB
-  const int smem = (DHP / BOX_COLS) * (BOX_BYTES + 2 * STAGES * BK * 128) +
-                   1024;
+  const int smem = (DHP / BOX_COLS) * (BOX_BYTES + STAGES * BK * 128) +
+                   (DV / BOX_COLS) * STAGES * BK * 128 + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DHP, BK>,
+      flash_wgmma_kernel<DHP, DV, BK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
@@ -722,9 +734,9 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (err != cudaSuccess) return int(err);
   const long long n_work = (long long)((Sq + BQ - 1) / BQ) * H * B;
   const int grid = int(n_work < sms ? n_work : sms);   // one CTA per SM
-  flash_wgmma_kernel<DHP, BK><<<grid, THREADS, smem, stream>>>(
+  flash_wgmma_kernel<DHP, DV, BK><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), os, H, B, H / KV, Sq, Sk,
-      dh, causal, has_window, window, scale * LOG2E);
+      dv, causal, has_window, window, scale * LOG2E);
   return int(cudaGetLastError());
 }
 
@@ -760,14 +772,42 @@ extern "C" int flash_attention_sm90_fwd(
   const Strides os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh <= 64)
-    return launch<64, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                           has_window, window, scale, st);
+    return launch<64, 64, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os,
+                               causal, has_window, window, scale, st);
   if (dh <= 128)
-    return launch<128, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                            has_window, window, scale, st);
+    return launch<128, 128, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os,
+                                 causal, has_window, window, scale, st);
   if (dh <= 192)
-    return launch<192, 64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                           has_window, window, scale, st);
-  return launch<256, 64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os, causal,
-                         has_window, window, scale, st);
+    return launch<192, 192, 64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os,
+                                causal, has_window, window, scale, st);
+  return launch<256, 256, 64>(qm, km, vm, o, B, H, KV, Sq, Sk, dh, os,
+                              causal, has_window, window, scale, st);
+}
+
+// As flash_attention_sm90_fwd, with v and o of dv columns where q and k
+// have dh: the instance <192, 128, 128>, for dh in 136..192 and dv in
+// 8..128 (multiples of 8); o's strides are of a (B, H, Sq, dv) tensor.
+extern "C" int flash_attention_sm90_dv_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KV, int Sq, int Sk, int dh, int dv, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, long long osb,
+    long long osh, long long oss, int causal, int has_window, int window,
+    float scale, void* stream) {
+  if (B < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 ||
+      (long long)((Sq + BQ - 1) / BQ) * H * B > 2147483647LL)
+    return int(cudaErrorInvalidValue);
+  if (dh <= 128 || dh > 192 || dh % 8 || dv < 8 || dv > 128 || dv % 8)
+    return int(cudaErrorInvalidValue);
+  if (!encoder()) return int(cudaErrorSymbolNotFound);
+  CUtensorMap qm, km, vm;
+  CUresult res = encode(&qm, q, dh, Sq, H, B, Strides{qsb, qsh, qss}, BQ);
+  if (res == CUDA_SUCCESS)
+    res = encode(&km, k, dh, Sk, KV, B, Strides{ksb, ksh, kss}, 128);
+  if (res == CUDA_SUCCESS)
+    res = encode(&vm, v, dv, Sk, KV, B, Strides{vsb, vsh, vss}, 128);
+  if (res != CUDA_SUCCESS) return 1000 + int(res);
+  return launch<192, 128, 128>(qm, km, vm, o, B, H, KV, Sq, Sk, dv,
+                               Strides{osb, osh, oss}, causal, has_window,
+                               window, scale, static_cast<cudaStream_t>(stream));
 }

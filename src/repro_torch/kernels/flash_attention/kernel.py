@@ -28,11 +28,18 @@ dh columns; `flash_attention_bhsd.staged` counts such calls (a copy, not
 a fallback: the kernel still runs and is counted).
 `flash_attention_bhsd.launches` counts every launch, and
 `flash_attention_bhsd.route_launches[route]` those of each kernel, so a run
-can show which kernel it went through. Each call reports its work to an
-active step counter (`roofline.counter.kernel_work`, by `work`). Fake CUDA
-tensors (`FakeTensorMode`, a traced step) pass the same checks, but for
-the address (a fake tensor has none), and get their output allocated
-(fake) and their work counted; nothing is built or launched, and
+can show which kernel it went through.
+
+v may have another head width (dv) than q and k (dh), as latent attention
+has (q/k 192, v 128): the output then has dv columns, and the caller may
+give the softmax scale (`scale`; default 1/sqrt(dh)). Such a call runs
+through an instance of two widths (`SPLIT_INSTANCES`: the tensor-core
+kernel's <192 q/k, 128 v>); any other pair of unequal widths is refused.
+Each call reports its work to an active step counter
+(`roofline.counter.kernel_work`, by `work`). Fake CUDA tensors
+(`FakeTensorMode`, a traced step) pass the same checks, but for the
+address (a fake tensor has none), and get their output allocated (fake)
+and their work counted; nothing is built or launched, and
 `flash_attention_bhsd.fake_calls` counts those calls.
 """
 from __future__ import annotations
@@ -54,6 +61,9 @@ SOURCES = {"wgmma": "flash_attention_sm90", "split_tf32": "flash_attention"}
 # the padded head widths each kernel is compiled for
 INSTANCES = {"wgmma": (64, 128, 192, 256),
              "split_tf32": tuple(range(32, HEAD_DIM_MAX + 1, 32))}
+# the (q/k, v) head widths of the instances whose v is narrower: the only
+# pairs of unequal widths a call may have
+SPLIT_INSTANCES = {"wgmma": ((192, 128),), "split_tf32": ()}
 TMA_ALIGN = 16                   # bytes: both kernels' addresses, strides
 
 
@@ -68,10 +78,14 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(route_name: str):
-    name = SOURCES[route_name]          # csrc/<name>.cu exports <name>_fwd
-    fn = getattr(_build.load(name), f"{name}_fwd")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+def _entry(route_name: str, split: bool = False):
+    """csrc/<name>.cu's <name>_fwd, or with `split` its <name>_dv_fwd,
+    which takes v's width after q's."""
+    name = SOURCES[route_name]
+    fn = getattr(_build.load(name), f"{name}_dv_fwd" if split
+                 else f"{name}_fwd")
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 if split
+                                                             else 6)
                    + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -154,37 +168,48 @@ def check_tiling(Sq: int, Sk: int, block_q: int, block_k: int):
                          f"multiples of block_q={bq} and block_k={bk}")
 
 
-def work(q, k, causal=True, window: Optional[int] = None):
-    """(flop, bytes) of one call: 4 dh flop for each (q, k) pair the mask
-    lets through, per (batch, head), and the bytes of q, k, v and o, each
-    read or written once (the formulas of the kernel's bound in
-    `chip_smoke.py`)."""
+def work(q, k, causal=True, window: Optional[int] = None, v=None):
+    """(flop, bytes) of one call: 2 (dh + dv) flop (q.k and p.v) for each
+    (q, k) pair the mask lets through, per (batch, head), 4 dh where v is
+    k's width; and the bytes of q, k, v and o, each read or written once
+    (the formulas of the kernel's bound in `chip_smoke.py`). `v` defaults
+    to a tensor of k's shape."""
     B, H, Sq, dh = q.shape
     Sk = k.shape[2]
+    dv = dh if v is None else v.shape[3]
     qpos = np.arange(Sq)
     hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, int)
     pairs = int(np.maximum(hi - lo + 1, 0).sum())
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return float(4 * dh * B * H * pairs), float(nbytes)
+    if v is None:
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    else:
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                     + q.numel() // dh * dv)
+    return float(2 * (dh + dv) * B * H * pairs), float(nbytes)
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True,
                          window: Optional[int] = None,
-                         block_q: int = 512, block_k: int = 512):
+                         block_q: int = 512, block_k: int = 512,
+                         scale: Optional[float] = None):
     """Forward attention on the card.
 
-    q: (B, H, Sq, dh); k, v: (B, KV, Sk, dh) -> (B, H, Sq, dh), float32 or
-    bfloat16, dh <= HEAD_DIM_MAX, H a multiple of KV. `block_q`/`block_k`
-    only set the accepted shapes (`check_tiling`); the kernels tile by 128
-    (wgmma) or 64 (split_tf32). A staged call (`plan`) returns a slice of
-    a padded buffer. Every check runs before any build or launch."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    q: (B, H, Sq, dh); k: (B, KV, Sk, dh); v: (B, KV, Sk, dv) -> (B, H, Sq,
+    dv), float32 or bfloat16, dh and dv <= HEAD_DIM_MAX, H a multiple of
+    KV. Scores are scaled by `scale`, by default 1/sqrt(dh). `block_q`/
+    `block_k` only set the accepted shapes (`check_tiling`); the kernels
+    tile by 128 (wgmma) or 64 (split_tf32). dv != dh only as a pair of
+    `SPLIT_INSTANCES`. A staged call (`plan`) returns a slice of a padded
+    buffer. Every check runs before any build or launch."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
-                         "(B, H, Sq, dh) and two equal (B, KV, Sk, dh)")
+                         "(B, H, Sq, dh), (B, KV, Sk, dh) and (B, KV, Sk, "
+                         "dv)")
     B, H, Sq, dh = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != dh or KV < 1 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k/v {tuple(k.shape)}")
@@ -199,44 +224,58 @@ def flash_attention_bhsd(q, k, v, *, causal=True,
                              "contiguous")
     check_tiling(Sq, Sk, block_q, block_k)
     kind = route(q.dtype)
+    split = dv != dh
+    if split and (dh, dv) not in SPLIT_INSTANCES[kind]:
+        raise ValueError(f"flash_attention: no {kind} instance takes q/k of "
+                         f"{dh} and v of {dv} columns; its pairs of unequal "
+                         f"widths: {list(SPLIT_INSTANCES[kind])}")
     aligned = all(_stride_fault(t, name) is None
                   for t, name in ((q, "q"), (k, "k"), (v, "v")))
     how = plan(q.dtype, dh, aligned)
+    wv = dv if split else how.dh     # a pair's widths are whole pieces
     fake = is_fake(q)
     if dev.type != "cuda" or not (
             fake or dev.index == torch.cuda.current_device()):
         raise ValueError(f"flash_attention kernel needs tensors on the "
                          f"current CUDA device, got {dev}")
 
+    def empty(width):                # (B, H, Sq, width), laid (B, Sq, H)
+        return q.new_empty_strided((B, H, Sq, width),
+                                   (Sq * H * width, width, H * width, 1))
+
     if q.numel() == 0:
-        return torch.empty_like(q)
+        return empty(dv) if split else torch.empty_like(q)
     if counting():
-        kernel_work("flash_attention", *work(q, k, causal, window))
+        kernel_work("flash_attention", *work(q, k, causal, window, v))
     if fake:
         flash_attention_bhsd.fake_calls += 1
-        return torch.empty_like(q)
+        return empty(dv) if split else torch.empty_like(q)
     if how.staged:
-        q, k, v = (stage(t, how.dh) for t in (q, k, v))
-    o = torch.empty_like(q)          # q's layout (dense) or contiguous
+        q, k = (stage(t, how.dh) for t in (q, k))
+        v = stage(v, wv)
+    # q's layout (dense) or contiguous; of v's width, as the model lays q
+    o = empty(dv) if split else torch.empty_like(q)
     strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"))
                for s in tma_strides(t, name)]
-    err = _entry(kind)(
+    widths = (how.dh, dv) if split else (how.dh,)
+    err = _entry(kind, split)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, H, KV, Sq, Sk, how.dh, *strides, *o.stride()[:3],
+        B, H, KV, Sq, Sk, *widths, *strides, *o.stride()[:3],
         int(causal), int(window is not None),
         int(window) if window is not None else 0,
-        float(1.0 / dh ** 0.5), torch.cuda.current_stream().cuda_stream)
+        float(1.0 / dh ** 0.5) if scale is None else float(scale),
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         what = (f"tensor map encoding failed: CUresult {err - 1000}"
                 if err >= 1000 else f"CUDA error {err}")
         raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
                            f"{what} (B={B}, H={H}, KV={KV}, Sq={Sq}, "
-                           f"Sk={Sk}, dh={dh}, {q.dtype})")
+                           f"Sk={Sk}, dh={dh}, dv={dv}, {q.dtype})")
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.route_launches[kind] += 1
     if how.staged:
         flash_attention_bhsd.staged += 1
-        return o[..., :dh]
+        return o[..., :dv]
     return o
 
 

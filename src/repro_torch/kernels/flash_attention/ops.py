@@ -34,8 +34,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
 def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
-                    block_q: int = 512, block_k: int = 512):
-    """q: (B, S, H, dh); k, v: (B, S, KV, dh) -> (B, S, H, dh).
+                    block_q: int = 512, block_k: int = 512,
+                    scale: Optional[float] = None):
+    """q: (B, S, H, dh); k: (B, S, KV, dh); v: (B, S, KV, dv) -> (B, S, H,
+    dv), scores scaled by `scale` (default 1/sqrt(dh)).
 
     Axes 1 and 2 are swapped as views; the kernel reads the strided layout
     and writes its output in q's layout, so no copy is made. Raises
@@ -48,13 +50,15 @@ def flash_attention(q, k, v, *, causal=True, window: Optional[int] = None,
         dims = {"batch": 0, "heads": 2}
         return run_local(
             functools.partial(flash_attention, causal=causal, window=window,
-                              block_q=block_q, block_k=block_k),
+                              block_q=block_q, block_k=block_k, scale=scale),
             "flash_attention", (q, k, v), (dims,) * 3, (dims,))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         check_tiling(q.shape[1], k.shape[1], block_q, block_k)
-        out = attention_ref(qt, kt, vt, causal=causal, window=window)
+        out = attention_ref(qt, kt, vt, causal=causal, window=window,
+                            scale=scale)
     else:
         out = flash_attention_bhsd(qt, kt, vt, causal=causal, window=window,
-                                   block_q=block_q, block_k=block_k)
+                                   block_q=block_q, block_k=block_k,
+                                   scale=scale)
     return out.transpose(1, 2)

@@ -38,10 +38,10 @@ def _mask(Sq, Sk, causal, window, device):
 
 def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
                   scale: Optional[float] = None):
-    """q: (B, H, Sq, dh); k, v: (B, KV, Sk, dh). fp32 softmax.
-    Query head h reads KV head h // (H // KV). The scores are scaled by
-    1 / sqrt(dh), or by `scale` where given (a head zero-padded past its
-    true width keeps the true width's scale)."""
+    """q: (B, H, Sq, dh); k: (B, KV, Sk, dh); v: (B, KV, Sk, dv) -> (B, H,
+    Sq, dv). fp32 softmax. Query head h reads KV head h // (H // KV). The
+    scores are scaled by 1 / sqrt(dh), or by `scale` where given (a head
+    zero-padded past its true width keeps the true width's scale)."""
     B, H, Sq, dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
@@ -51,7 +51,7 @@ def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
     s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype), v)
-    return o.reshape(B, H, Sq, dh)
+    return o.reshape(B, H, Sq, v.shape[3])
 
 
 def attention_split_ref(q, k, v, *, causal=True,

@@ -1,4 +1,5 @@
-"""Attention: GQA + RoPE + qk-norm + sliding-window, in three implementations.
+"""Attention: GQA + RoPE + qk-norm + sliding-window, in three implementations,
+and latent attention (MLA, DeepSeek-V2) projected onto them.
 
 * ``naive``        — full O(S^2) softmax; oracle for tests (small shapes only).
 * ``xla_blocked``  — memory-bounded blocked attention with an online
@@ -8,6 +9,16 @@
                      for tensors on the card, its plain version on the CPU.
 
 Decode uses the dense-cache path (`decode_attention_dense`).
+
+Each takes the softmax scale (`scale`, default 1/sqrt(dh) of q) and a v
+whose head is narrower or wider than q's and k's: the output has v's
+width. MLA (`mla_params`, `mla_project`, `mla_expand`): q = x W_q, split
+into a nope and a rope part; [c_kv, k_pe] = x W_kv_a, c_kv RMS-normed
+(the latent); [k_nope, v] = c_kv W_kv_b; the rope parts turn by YaRN's
+frequencies on the published interleaved pairs; k_pe is one head,
+broadcast to all; the scale is (nope + rope)^-1/2 times YaRN's mscale
+squared (`mla_scale`). The latent and the rotated k_pe are what a decode
+cache keeps a token.
 """
 from __future__ import annotations
 
@@ -21,7 +32,10 @@ from repro_torch.distributed.sharding import (shard_ranks, split_last,
                                                whole_dims)
 from repro_torch.kernels._dtensor import is_dtensor, run_local
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, dot, head_rmsnorm_params
+from repro_torch.models.layers import (apply_rope, apply_rope_pairs, dot,
+                                       head_rmsnorm_params, rmsnorm,
+                                       rmsnorm_params, yarn_freqs,
+                                       yarn_mscale)
 from repro_torch.models.params import Param
 
 NEG_INF = -1e30
@@ -74,6 +88,63 @@ def project_qkv(params, x, *, n_heads, n_kv, dh, positions, rope_theta,
     return q, k, v
 
 
+def mla_params(cfg):
+    """Weights of an MLA layer without a q LoRA."""
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    return {
+        "wq": Param((d, H * cfg.qk_head_dim), ("embed", "heads")),
+        "wkv_a": Param((d, cfg.latent_dim), ("embed", None)),
+        "kv_norm": rmsnorm_params(r),
+        "wkv_b": Param((r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                       (None, "heads")),
+        "wo": Param((H * cfg.v_head_dim, d), ("heads", "embed")),
+    }
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale: (qk_nope + qk_rope)^-1/2 times YaRN's mscale of
+    `yarn_mscale_all_dim`, squared."""
+    m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) \
+        if cfg.yarn_mscale_all_dim else 1.0
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
+def _mla_rope(cfg, x, positions):
+    inv = yarn_freqs(cfg.qk_rope_head_dim, cfg.rope_theta, cfg.yarn_factor,
+                     cfg.yarn_original_max_pos, cfg.yarn_beta_fast,
+                     cfg.yarn_beta_slow, x.device)
+    ratio = 1.0
+    if cfg.yarn_mscale_all_dim:
+        ratio = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale) / yarn_mscale(
+            cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    return apply_rope_pairs(x, positions, inv, ratio)
+
+
+def mla_project(params, x, cfg, positions):
+    """x: (B, S, d) -> q (B, S, H, nope + rope), its rope part rotated,
+    and the latent (B, S, kv_lora_rank + rope): the normed c_kv and the
+    rotated k_pe, what the cache keeps."""
+    H, dn, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q = split_last(dot(x, params["wq"]), H, cfg.qk_head_dim)
+    q = torch.cat([q[..., :dn], _mla_rope(cfg, q[..., dn:], positions)],
+                  dim=-1)
+    kv_a = dot(x, params["wkv_a"])
+    c_kv = rmsnorm(params["kv_norm"], kv_a[..., :r], cfg.norm_eps)
+    k_pe = _mla_rope(cfg, kv_a[..., None, r:], positions)[..., 0, :]
+    return q, torch.cat([c_kv, k_pe], dim=-1)
+
+
+def mla_expand(params, latent, cfg):
+    """The latent (B, S, kv_lora_rank + rope) -> k (B, S, H, nope + rope)
+    and v (B, S, H, v_head_dim): [k_nope, v] = c_kv W_kv_b, k_pe broadcast
+    to every head. v is a view of the product (its head dim contiguous)."""
+    H, dn, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    kv = split_last(dot(latent[..., :r], params["wkv_b"]), H,
+                    dn + cfg.v_head_dim)
+    k_pe = latent[..., None, r:].expand(*kv.shape[:-1], cfg.qk_rope_head_dim)
+    return torch.cat([kv[..., :dn], k_pe], dim=-1), kv[..., dn:]
+
+
 def _common(*ts):
     """Cast tensors to their promoted dtype (JAX promotes mixed operands of
     an einsum; torch refuses them)."""
@@ -102,19 +173,21 @@ def _on_head_shards(fn, name, q, k, v):
 
 
 def naive_attention(q, k, v, *, causal=True, window: Optional[int] = None,
-                    q_offset: int = 0):
-    """q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh). GQA by head grouping. fp32 softmax.
-    DTensors run on each rank's batch and head shards."""
+                    q_offset: int = 0, scale: Optional[float] = None):
+    """q: (B,Sq,H,dh); k: (B,Sk,KV,dh); v: (B,Sk,KV,dv) -> (B,Sq,H,dv). GQA
+    by head grouping. fp32 softmax; scores times `scale` (default
+    1/sqrt(dh)). DTensors run on each rank's batch and head shards."""
     if is_dtensor(q, k, v):
         return _on_head_shards(
             functools.partial(naive_attention, causal=causal, window=window,
-                              q_offset=q_offset), "naive_attention", q, k, v)
+                              q_offset=q_offset, scale=scale),
+            "naive_attention", q, k, v)
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg, kc = _common(q.reshape(B, Sq, KV, G, dh), k)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kc).float()
-    scores = scores * _scale(dh)
+    scores = scores * (_scale(dh) if scale is None else scale)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -125,7 +198,7 @@ def naive_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", *_common(probs.to(v.dtype), v))
-    return out.reshape(B, Sq, H, dh)
+    return out.reshape(B, Sq, H, v.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +224,7 @@ def _block_attend(q, k, v, mask, m_prev, l_prev, acc_prev, sm_scale):
 
 
 def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
-                      block_q=512, block_k=1024):
+                      block_q=512, block_k=1024, scale: Optional[float] = None):
     """Memory-bounded attention, the reference's `xla_blocked` path. GQA k/v
     are repeated to H heads up front. Causal tiles are all visited (masked);
     with a window, a fixed count of k tiles ending at the q tile's index is
@@ -160,14 +233,15 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     `dynamic_slice` clamps it. The visited k tiles are counted from the q
     tile's INDEX, so with a window and block_q != block_k the result can
     differ from `naive_attention`; the reference does the same, and the
-    port keeps its results (ROADMAP Queue 3)."""
+    port keeps its results (ROADMAP Queue 3). v may be of another width
+    than q and k; `scale` defaults to 1/sqrt(dh)."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if is_dtensor(q, k, v):
         return _on_head_shards(
             functools.partial(blocked_attention, causal=causal,
                               window=window, block_q=block_q,
-                              block_k=block_k),
+                              block_k=block_k, scale=scale),
             "blocked_attention", q, k, v)
     if KV != H:
         G = H // KV
@@ -178,7 +252,7 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     if Sq % block_q or Sk % block_k:
         raise ValueError(f"blocked_attention: {(Sq, block_q, Sk, block_k)}")
     nq, nk = Sq // block_q, Sk // block_k
-    sm_scale = _scale(dh)
+    sm_scale = _scale(dh) if scale is None else scale
     dev = q.device
     nk_vis = min(nk, window // block_k + 2) if window is not None else nk
 
@@ -189,7 +263,7 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
         m = torch.full((B, H, block_q), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, H, block_q), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, block_q, H, dh), dtype=torch.float32,
+        acc = torch.zeros((B, block_q, H, v.shape[-1]), dtype=torch.float32,
                           device=dev)
         k_first = max(qi - (nk_vis - 1), 0) if window is not None else 0
         for kj in range(k_first, k_first + nk_vis):
@@ -214,11 +288,13 @@ def blocked_attention(q, k, v, *, causal=True, window: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def decode_attention_dense(q, k_cache, v_cache, cache_len, *,
-                           window: Optional[int] = None):
-    """q: (B,1,H,dh); caches: (B,S,KV,dh); cache_len: (B,) valid lengths.
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None):
+    """q: (B,1,H,dh); caches: (B,S,KV,dh) and (B,S,KV,dv); cache_len: (B,)
+    valid lengths -> (B,1,H,dv).
 
     Reads the whole cache; masked beyond length and outside the sliding
-    window.
+    window. Scores times `scale` (default 1/sqrt(dh)).
     """
     B, S, KV, dh = k_cache.shape
     H = q.shape[2]
@@ -229,7 +305,7 @@ def decode_attention_dense(q, k_cache, v_cache, cache_len, *,
     q = whole_dims(q, 2)
     qg, kc = _common(q.reshape(B, KV, G, dh), k_cache)
     s = torch.einsum("bkgd,bskd->bkgs", qg, kc).float()
-    s = s * _scale(dh)
+    s = s * (_scale(dh) if scale is None else scale)
     kpos = torch.arange(S, device=q.device)[None, :]
     valid = kpos < cache_len[:, None]
     if window is not None:
@@ -238,17 +314,20 @@ def decode_attention_dense(q, k_cache, v_cache, cache_len, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", *_common(p.to(v_cache.dtype),
                                                    v_cache))
-    return out.reshape(B, 1, H, dh)
+    return out.reshape(B, 1, H, v_cache.shape[-1])
 
 
 def attention(q, k, v, *, impl="xla_blocked", causal=True, window=None,
-              block_q=512, block_k=1024):
+              block_q=512, block_k=1024, scale=None):
     if impl == "naive":
-        return naive_attention(q, k, v, causal=causal, window=window)
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
     if impl == "xla_blocked":
         return blocked_attention(q, k, v, causal=causal, window=window,
-                                 block_q=block_q, block_k=block_k)
+                                 block_q=block_q, block_k=block_k,
+                                 scale=scale)
     if impl == "pallas_flash":
         # the reference passes no block sizes here: the kernel's 512 x 512
-        return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")

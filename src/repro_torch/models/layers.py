@@ -1,5 +1,8 @@
-"""Common layers in plain PyTorch: RMSNorm, RoPE, SwiGLU MLP, embeddings."""
+"""Common layers in plain PyTorch: RMSNorm, RoPE (and YaRN's), SwiGLU MLP,
+embeddings."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +55,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor 0.1 mscale ln(factor) + 1 (1 at factor <=
+    1), as DeepSeek-V2's `yarn_get_mscale`."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, original: int,
+               beta_fast: float, beta_slow: float,
+               device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies, shape (dim//2,), float32: pair i keeps
+    theta^(-2i/dim) below the correction range, takes it divided by
+    `factor` above, and a linear ramp between. The range's ends are the
+    pairs that turn `beta_fast` and `beta_slow` times over `original`
+    positions (floor and ceil, clamped to [0, dim - 1]). Factor 1 gives
+    `rope_freqs`."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    power = theta ** exps
+    if factor <= 1:
+        return 1.0 / power
+
+    def pair(turns):
+        return dim * math.log(original / (turns * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    low = max(math.floor(pair(beta_fast)), 0)
+    high = min(math.ceil(pair(beta_slow)), dim - 1)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / max(high - low, 1e-3)).clamp(0, 1)
+    return (1.0 / (factor * power)) * ramp + (1.0 / power) * (1 - ramp)
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor,
+                     inv_freq: torch.Tensor, scale: float = 1.0
+                     ) -> torch.Tensor:
+    """x: (..., seq, heads, dh); positions broadcastable to (..., seq);
+    inv_freq (dh//2,). The published interleaved rotation: columns (2i,
+    2i+1) turn by position x inv_freq[i], in float32 angles, cos and sin
+    times `scale` (YaRN's mscale ratio); the output keeps the pairs in
+    place."""
+    ang = positions[..., :, None].float() * inv_freq       # (..., seq, dh/2)
+    cos = (torch.cos(ang) * scale)[..., None, :]
+    sin = (torch.sin(ang) * scale)[..., None, :]
+    x0, x1 = x.float().unflatten(-1, (-1, 2)).unbind(-1)
+    out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    return out.flatten(-2).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ Modes:
 
 Caches are dicts with the reference's keys: ``cache_len`` (B,) int32;
 ``k``/``v`` of shape (R, n_attn, B, S, KV, dh) when there are attention
-layers; ``ssm_h`` (R, n_ssm, B, nh, hd, ds) float32 and ``ssm_conv``
+layers; ``latent`` (R, n_mla, B, S, kv_lora_rank + qk_rope_head_dim) for
+latent-attention (MLA) layers, the normed latent and the rotated k_pe a
+token, from which decode expands k and v through W_kv_b each step; ``ssm_h`` (R, n_ssm, B, nh, hd, ds) float32 and ``ssm_conv``
 (R, n_ssm, B, W-1, conv_dim) when there are SSM layers; ``cross_k`` /
 ``cross_v`` (R, n_attn, B, enc_len, KV, dh) for the encoder-decoder,
 built at prefill from the encoder's output and only read at decode.
@@ -68,6 +70,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import (Param, TensorSpec, stack_params,
                                        tree_leaves, tree_map)
 from repro_torch.models.quant import dequant_tree
+from repro_torch.spans import span
 
 Constrain = Callable[[torch.Tensor, Tuple[Optional[str], ...]], torch.Tensor]
 
@@ -108,7 +111,9 @@ def block_pattern(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...],
 def _layer_param_tree(cfg: ModelConfig, kind: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": L.rmsnorm_params(d)}
-    if kind == "attn":
+    if kind == "mla":
+        p["attn"] = attn_mod.mla_params(cfg)
+    elif kind == "attn":
         p["attn"] = attn_mod.attn_params(
             d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
         if cfg.is_enc_dec:
@@ -120,7 +125,8 @@ def _layer_param_tree(cfg: ModelConfig, kind: str, ffn: str) -> Dict[str, Any]:
     if cfg.d_ff > 0 or ffn == "moe":
         p["norm2"] = L.rmsnorm_params(d)
         if ffn == "moe":
-            p["moe"] = moe_mod.moe_params(d, cfg.expert_d_ff, cfg.n_experts)
+            p["moe"] = moe_mod.moe_params(d, cfg.expert_d_ff, cfg.n_experts,
+                                          cfg.n_shared_experts)
         else:
             p["mlp"] = L.mlp_params(d, cfg.d_ff)
     return p
@@ -171,7 +177,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     P, kinds, _ = block_pattern(cfg)
     R = cfg.n_layers // P
     n_attn = sum(1 for k in kinds if k == "attn")
-    n_ssm = P - n_attn
+    n_mla = sum(1 for k in kinds if k == "mla")
+    n_ssm = P - n_attn - n_mla
     S = max_len if cfg.sliding_window is None \
         else min(max_len, cfg.sliding_window)
     out: Dict[str, Any] = {"cache_len": TensorSpec((batch,), torch.int32)}
@@ -180,6 +187,9 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
                         torch.bfloat16)
         out["k"] = kv
         out["v"] = kv
+    if n_mla:
+        out["latent"] = TensorSpec((R, n_mla, batch, S, cfg.latent_dim),
+                                   torch.bfloat16)
     if n_ssm:
         st = m2.ssm_state_specs(cfg, batch)
         out["ssm_h"] = TensorSpec((R, n_ssm) + st.h.shape, st.h.dtype)
@@ -297,6 +307,47 @@ def _self_attention_decode(cfg, run, lp, x, cache_k, cache_v, cache_len,
     return constrain(L.dot(o, lp["attn"]["wo"]), ("batch", None, "embed"))
 
 
+def _mla_full(cfg, run, lp, x, positions, constrain, build_cache):
+    """Latent attention over (B, S, d): the latent and q projected, k and v
+    expanded from the latent, causal attention at the MLA's scale, the
+    output projection. Returns (out, the latent (B, S, latent_dim) when
+    building caches)."""
+    B, S, _ = x.shape
+    with span("model.mla") as rec:
+        q, latent = attn_mod.mla_project(lp["attn"], x, cfg, positions)
+        k, v = attn_mod.mla_expand(lp["attn"], latent, cfg)
+        o = attn_mod.attention(
+            constrain(q, ("batch", None, "heads", None)),
+            constrain(k, ("batch", None, "heads", None)),
+            constrain(v, ("batch", None, "heads", None)),
+            impl=run.attention_impl, causal=True, block_q=run.attn_block_q,
+            block_k=run.attn_block_k, scale=attn_mod.mla_scale(cfg))
+        out = L.dot(_merge_heads(o, constrain), lp["attn"]["wo"])
+        if rec is not None and build_cache:
+            rec["bytes"] = latent.numel() * latent.element_size()
+    return (constrain(out, ("batch", None, "embed")),
+            latent if build_cache else None)
+
+
+def _mla_decode(cfg, run, lp, x, cache, cache_len, constrain):
+    """x: (B, 1, d); cache: (B, S, latent_dim), this token's latent written
+    in place at slot min(cache_len, S - 1); k and v expanded from the
+    whole cache through W_kv_b, attention over the valid slots."""
+    B = x.shape[0]
+    with span("model.mla") as rec:
+        q, latent = attn_mod.mla_project(lp["attn"], x, cfg,
+                                         cache_len[:, None])
+        _write_slot(cache, cache_len.clamp_max(cache.shape[1] - 1),
+                    latent[:, 0])
+        k, v = attn_mod.mla_expand(lp["attn"], cache, cfg)
+        o = attn_mod.decode_attention_dense(q, k, v, cache_len + 1,
+                                            scale=attn_mod.mla_scale(cfg))
+        out = L.dot(o.reshape(B, 1, -1), lp["attn"]["wo"])
+        if rec is not None:
+            rec["bytes"] = latent.numel() * latent.element_size()
+    return constrain(out, ("batch", None, "embed"))
+
+
 def _cross_attention(cfg, run, lp, x, enc_out=None, cross_kv=None,
                      constrain=_noop_constrain):
     """Cross attention over the encoder's frames: k/v projected from
@@ -330,9 +381,11 @@ def _ffn(cfg, run, lp, x, constrain):
     """Dense SwiGLU or MoE FFN. Returns (y, aux dict or None)."""
     aux = None
     if "moe" in lp:
-        y, aux = moe_mod.moe_apply(lp["moe"], x, top_k=cfg.top_k,
-                                   capacity_factor=cfg.capacity_factor,
-                                   constrain=constrain)
+        y, aux = moe_mod.moe_apply(
+            lp["moe"], x, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+            norm_topk_prob=cfg.norm_topk_prob,
+            constrain=constrain)
     else:
         y = L.mlp(lp["mlp"], x)
     return constrain(y, ("batch", None, "embed")), aux
@@ -369,11 +422,20 @@ def _layer(cfg, run, kind, ix, r, x, lp, positions, *, decode, caches,
            enc_out, build_cache, constrain):
     """One layer of block r (params `lp`; `ix` its index among the block's
     layers of its kind), the reference's layer body. Returns (x, its aux
-    loss or None when it has none, its k/v, SSM state and cross k/v, each
+    loss or None when it has none, its k/v (an MLA layer's latent), SSM
+    state and cross k/v, each
     None unless building caches)."""
     kv = st = ckv = None
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if kind == "attn":
+    if kind == "mla":
+        if decode:
+            o = _mla_decode(cfg, run, lp, h, caches["latent"][r, ix],
+                            caches["cache_len"], constrain)
+        else:
+            o, kv = _mla_full(cfg, run, lp, h, positions, constrain,
+                              build_cache)
+        x = x + o
+    elif kind == "attn":
         if decode:
             o = _self_attention_decode(
                 cfg, run, lp, h, caches["k"][r, ix], caches["v"][r, ix],
@@ -495,9 +557,10 @@ def backbone(cfg: ModelConfig, run: RunConfig, params, x, positions, *,
     elif build_cache:
         new_caches = {"cache_len": torch.full(
             (x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)}
-        for key, blocks_out, field in (
-                ("k", kv_out, lambda kv: kv[0]),
-                ("v", kv_out, lambda kv: kv[1]),
+        attn = ((("latent", kv_out, lambda c: c),) if cfg.is_mla else
+                (("k", kv_out, lambda kv: kv[0]),
+                 ("v", kv_out, lambda kv: kv[1])))
+        for key, blocks_out, field in attn + (
                 ("ssm_h", ssm_out, lambda st: st.h),
                 ("ssm_conv", ssm_out, lambda st: st.conv),
                 ("cross_k", cross_out, lambda kv: kv[0]),
@@ -610,15 +673,15 @@ def _pad_prefill_caches(cfg, caches, max_len):
     at slot p % window: a key still inside the window is overwritten
     (ROADMAP Queue 3)."""
     out = dict(caches)
-    for key in ("k", "v"):
+    for key in ("k", "v", "latent"):
         if key in caches:
-            arr = caches[key]  # (R, A, B, S, KV, dh)
+            arr = caches[key]  # (R, A, B, S, KV, dh) or (R, A, B, S, c)
             S = arr.shape[3]
             cap = max_len if cfg.sliding_window is None \
                 else min(max_len, cfg.sliding_window)
             if cap > S:
                 out[key] = torch.nn.functional.pad(
-                    arr, (0, 0, 0, 0, 0, cap - S))
+                    arr, (0, 0) * (arr.dim() - 4) + (0, cap - S))
             elif cap < S:
                 out[key] = arr[:, :, :, S - cap:]
     return out

@@ -21,6 +21,12 @@ order, in the output dtype, one rounding per add, which is the order and
 rounding of the reference's `.at[tok].add`. A scatter-add on the card is
 atomic and run-order dependent in bf16; the gather makes two runs bit
 equal.
+
+Beyond the reference (DeepSeek-V2's MoE): the top-k gates may stay
+unnormalised (`norm_topk_prob` False: the softmax probabilities as they
+are), and shared experts, one SwiGLU over every token
+(params["shared"]), add to the routed output.
+The defaults leave the reference's path as it is.
 """
 from __future__ import annotations
 
@@ -30,17 +36,22 @@ import torch
 
 from repro_torch.distributed.sharding import whole_dims
 from repro_torch.kernels._dtensor import is_dtensor, run_local
+from repro_torch.models.layers import mlp, mlp_params
 from repro_torch.models.params import Param
+from repro_torch.spans import span
 
 
-def moe_params(d: int, d_ff: int, n_experts: int):
-    return {
+def moe_params(d: int, d_ff: int, n_experts: int, n_shared: int = 0):
+    p = {
         "router": Param((d, n_experts), ("embed", "experts"),
                         dtype=torch.float32),
         "w_gate": Param((n_experts, d, d_ff), ("experts", "embed", "ffn")),
         "w_up": Param((n_experts, d, d_ff), ("experts", "embed", "ffn")),
         "w_down": Param((n_experts, d_ff, d), ("experts", "ffn", "embed")),
     }
+    if n_shared:
+        p["shared"] = mlp_params(d, n_shared * d_ff)
+    return p
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,16 +67,17 @@ def capacity(S: int, top_k: int, n_experts: int,
     return min(cap, S * top_k)
 
 
-def route(params, x: torch.Tensor, top_k: int):
-    """Router logits (float32), softmax, top-k experts and renormalised
-    gates. x: (B, S, d) -> logits, probs (B, S, E), gate_vals, gate_idx
-    (B, S, K)."""
+def route(params, x: torch.Tensor, top_k: int, normalize: bool = True):
+    """Router logits (float32), softmax, top-k experts and their gates,
+    renormalised to sum to 1 with `normalize`. x: (B, S, d) -> logits,
+    probs (B, S, E), gate_vals, gate_idx (B, S, K)."""
     logits = x.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[..., :top_k], idx[..., :top_k]
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(
-        1e-9)
+    if normalize:
+        gate_vals = gate_vals / gate_vals.sum(
+            dim=-1, keepdim=True).clamp_min(1e-9)
     return logits, probs, gate_vals, gate_idx
 
 
@@ -113,7 +125,7 @@ def combine(y, w_tbl, slot, S: int, top_k: int):
     return out
 
 
-def _dispatch(x, router, top_k: int, cap: int):
+def _dispatch(x, router, top_k: int, cap: int, normalize: bool = True):
     """One group per row of x (B, S, d): routing, the aux-loss terms, the
     slot tables and the gathered expert buffer. Returns ebuf (B, E, cap,
     d), slot (B, S*K), w_tbl (B, E*cap), the per-group sum of me * ce
@@ -121,7 +133,8 @@ def _dispatch(x, router, top_k: int, cap: int):
     assignments (B, S*K)."""
     B, S, d = x.shape
     E = router.shape[-1]
-    logits, probs, gate_vals, gate_idx = route({"router": router}, x, top_k)
+    logits, probs, gate_vals, gate_idx = route({"router": router}, x, top_k,
+                                               normalize)
     me = probs.mean(dim=1)                                   # (B, E)
     onehot = torch.zeros((B, S, E), dtype=torch.float32, device=x.device)
     onehot.scatter_(2, gate_idx, 1.0)                        # K distinct ids
@@ -135,10 +148,14 @@ def _dispatch(x, router, top_k: int, cap: int):
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, constrain=None):
+              capacity_factor: float = 1.25, norm_topk_prob: bool = True,
+              constrain=None):
     """x: (B, S, d) -> (B, S, d), aux dict (lb_loss, z_loss, dropped_frac:
     0-d float32 tensors). Routing is per sequence (group); with S == 1 and
-    B > 1 the batch routes as ONE group.
+    B > 1 the batch routes as ONE group. The gates are renormalised with
+    `norm_topk_prob`; the shared experts (params["shared"], where
+    present) add their SwiGLU of x to the routed output, inside a
+    `model.moe.shared` span.
 
     A DTensor x routes each rank's groups on the rank (`run_local`: the
     router whole, the group's tokens whole, the batch of groups sharded),
@@ -149,11 +166,13 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     if S == 1 and B > 1:
         out, aux = moe_apply(params, whole_dims(x, 0).reshape(1, B, d),
                              top_k=top_k, capacity_factor=capacity_factor,
+                             norm_topk_prob=norm_topk_prob,
                              constrain=constrain)
         return out.reshape(B, S, d), aux
     E = params["router"].shape[-1]
     cap = capacity(S, top_k, E, capacity_factor)
-    dispatch = functools.partial(_dispatch, top_k=top_k, cap=cap)
+    dispatch = functools.partial(_dispatch, top_k=top_k, cap=cap,
+                                 normalize=norm_topk_prob)
     if is_dtensor(x):
         rows = {"batch": 0}
         ebuf, slot, w_tbl, lb, lse2, dropped = run_local(
@@ -183,6 +202,9 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     else:
         out = mix(y, w_tbl, slot)
     out = cb(out, ("batch", None, None))
+    if "shared" in params:
+        with span("model.moe.shared"):
+            out = out + mlp(params["shared"], x)
     dropped = dropped.sum().float() / (B * S * top_k)
     return out, {"lb_loss": lb_loss, "z_loss": z_loss,
                  "dropped_frac": dropped}

@@ -2,7 +2,9 @@
 
 `span(name, **attrs)` marks a stretch of host time: the simulator's pass,
 its cold start, each stage of the cycle step, the fused round, the final
-state's transfer and the per-row stats. With no profiler recording it
+state's transfer and the per-row stats; on the model path each latent
+attention layer (`model.mla`, with `bytes`, the latent cache it writes)
+and the shared experts (`model.moe.shared`). With no profiler recording it
 returns one shared no-op context: no clock is read and nothing is kept.
 Under `torch.profiler.profile` each span becomes a record
 
@@ -18,7 +20,7 @@ written to disk.
 No span or attribute reads a device tensor's value: sizes come from
 `numel()` and `element_size()`, so tracing adds no host sync and launches
 nothing. Records are kept per process and assume one thread issues the
-spans, as the simulator's loop does.
+spans, as the simulator's and the model's loops do.
 """
 from __future__ import annotations
 
